@@ -1,0 +1,48 @@
+"""Reads -> dBG -> canonical contig set (mirrors
+genomeassembler_dev_tpu/dbg/assemble.py, dense path only).
+
+The JAX module retries under growing walk and node capacities so that its
+compiled shapes stay few. Eager PyTorch sizes every array exactly, so the
+ladder is gone; the overflow check on max_contig_len stays.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from genomeassembler_dev_tpu_torch.core.encoding import decode_dna
+from genomeassembler_dev_tpu_torch.dbg.dense import contigs_dense
+from genomeassembler_dev_tpu_torch.ops.windows import kmer_window_codes
+
+# 4^10 presence bins per segment; beyond this the JAX package takes the
+# sparse path, which is not ported yet
+DENSE_MAX_K = 10
+
+
+def contigs_from_read_codes(
+    read_codes: torch.Tensor,  # [N, R] base codes
+    read_valid: torch.Tensor,  # [N] bool
+    dbg_kmer: int,
+    max_contig_len: int,
+) -> list[str]:
+    """Canonical contig set from reads. Raises if a walk overflows
+    max_contig_len."""
+    if dbg_kmer > DENSE_MAX_K:
+        raise NotImplementedError(
+            f"dbg_kmer {dbg_kmer} > {DENSE_MAX_K} needs the sparse dBG path, "
+            "not ported yet (ROADMAP.md Queue 1, item 1: sparse and big-k dBG)")
+    kcodes, kvalid = kmer_window_codes(read_codes, dbg_kmer, dtype=torch.int64)
+    kvalid = kvalid & read_valid[:, None]
+    buf, lens, wvalid, overflow, _, _ = contigs_dense(
+        kcodes, kvalid, dbg_kmer, max_contig_len)
+    return dedup_contigs(buf.cpu().numpy(), lens.cpu().numpy(),
+                         wvalid.cpu().numpy(), overflow.cpu().numpy())
+
+
+def dedup_contigs(buf: np.ndarray, lens: np.ndarray, walk_valid: np.ndarray,
+                  overflow: np.ndarray) -> list[str]:
+    if (overflow & walk_valid).any():
+        raise ValueError("contig walk overflowed max_contig_len; increase the cap")
+    return sorted({decode_dna(row[:ln])
+                   for row, ln, ok in zip(buf, lens, walk_valid) if ok})

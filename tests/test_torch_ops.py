@@ -1,0 +1,206 @@
+"""PyTorch port vs the JAX package: windows, matcher, breakscore, KS and
+Levenshtein, on identical numpy-made inputs. Integer outputs must agree
+exactly; float outputs within rtol 2e-5 (the JAX float32 tolerance)."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+
+from genomeassembler_dev_tpu.core.encoding import encode_dna  # noqa: E402
+from genomeassembler_dev_tpu.core.querytable import load_default_query_table  # noqa: E402
+from genomeassembler_dev_tpu.ops import ks as jks  # noqa: E402
+from genomeassembler_dev_tpu.ops import match as jmatch  # noqa: E402
+from genomeassembler_dev_tpu.ops import windows as jwin  # noqa: E402
+from genomeassembler_dev_tpu.ops.edit_distance import (  # noqa: E402
+    batched_levenshtein as j_lev)
+from genomeassembler_dev_tpu.ops.pallas.myers_kernel import (  # noqa: E402
+    batched_levenshtein_myers as j_myers)
+from genomeassembler_dev_tpu.score.breakscore import breakscore as j_breakscore  # noqa: E402
+from genomeassembler_dev_tpu.spec import reference_semantics as spec  # noqa: E402
+from genomeassembler_dev_tpu_torch.ops import ks as tks  # noqa: E402
+from genomeassembler_dev_tpu_torch.ops import windows as twin  # noqa: E402
+from genomeassembler_dev_tpu_torch.ops.edit_distance import (  # noqa: E402
+    batched_levenshtein as t_lev, batched_levenshtein_auto as t_lev_auto)
+from genomeassembler_dev_tpu_torch.ops.match import find_first_match as t_match  # noqa: E402
+from genomeassembler_dev_tpu_torch.ops.myers import batched_levenshtein_myers  # noqa: E402
+from genomeassembler_dev_tpu_torch.score.breakscore import breakscore as t_breakscore  # noqa: E402
+
+RTOL = 2e-5
+
+
+def rand_dna(rng, n):
+    return "".join(rng.choice(list("ACGT"), size=n))
+
+
+def pack(strings, L=None, pad=255):
+    L = L or max(len(s) for s in strings)
+    mat = np.full((len(strings), L), pad, np.uint8)
+    for i, s in enumerate(strings):
+        if s:
+            mat[i, : len(s)] = encode_dna(s)
+    return mat, np.array([len(s) for s in strings], np.int32)
+
+
+class TestWindows:
+    @pytest.mark.parametrize("k,dtype", [(3, torch.int32), (8, torch.int32),
+                                         (12, torch.int32), (9, torch.int64)])
+    def test_window_codes_and_masks(self, k, dtype):
+        rng = np.random.default_rng(k)
+        codes = rng.integers(0, 4, (3, 40)).astype(np.uint8)
+        codes[0, 5] = codes[2, 30] = 255  # invalid bases
+        jc, jv = jwin.kmer_window_codes(jnp.asarray(codes), k)
+        tc, tv = twin.kmer_window_codes(torch.from_numpy(codes), k, dtype=dtype)
+        assert tc.dtype == dtype
+        np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+    def test_pack_words(self):
+        rng = np.random.default_rng(3)
+        codes = rng.integers(0, 4, (4, 37)).astype(np.uint8)
+        expect = np.asarray(jwin.pack_words(jnp.asarray(codes))).astype(np.int64)
+        np.testing.assert_array_equal(twin.pack_words(torch.from_numpy(codes)).numpy(),
+                                      expect)
+
+
+def adversarial_match_inputs(rng, read_len):
+    """Padded paths, an all-T stretch, duplicate reads, invalid read slots."""
+    paths = [rand_dna(rng, int(rng.integers(50, 120))) for _ in range(5)]
+    paths[0] = paths[0][:10] + "T" * 40 + paths[0][50:]
+    reads = []
+    for _ in range(24):
+        r = rng.random()
+        if r < 0.5:
+            p = paths[int(rng.integers(len(paths)))]
+            start = int(rng.integers(0, len(p) - read_len + 1))
+            reads.append(p[start : start + read_len])
+        elif r < 0.7:
+            reads.append("T" * read_len)
+        else:
+            reads.append(rand_dna(rng, read_len))
+    reads += reads[:4]
+    pmat, plen = pack(paths, max(len(p) for p in paths) + 17)
+    rmat = np.stack([encode_dna(r) for r in reads])
+    rvalid = np.ones(len(reads), bool)
+    rvalid[3] = rvalid[10] = False
+    return pmat, plen, rmat, rvalid
+
+
+class TestMatch:
+    @pytest.mark.parametrize("read_len", [12, 16, 31])
+    def test_vs_grid_and_sorted(self, read_len):
+        rng = np.random.default_rng(11 + read_len)
+        args = adversarial_match_inputs(rng, read_len)
+        tf, tp = t_match(*(torch.from_numpy(a) for a in args))
+        tf, tp = tf.numpy(), tp.numpy()
+        for fn in (jmatch.find_first_match, jmatch.find_first_match_sorted):
+            jf, jp = (np.asarray(x) for x in fn(*(jnp.asarray(a) for a in args)))
+            np.testing.assert_array_equal(tf, jf, err_msg=fn.__name__)
+            np.testing.assert_array_equal(tp, np.where(jf, jp, 0), err_msg=fn.__name__)
+        assert tf.any() and not tf.all()
+
+    def test_long_reads_not_ported(self):
+        with pytest.raises(NotImplementedError):
+            t_match(torch.zeros((1, 64), dtype=torch.uint8), torch.tensor([64]),
+                    torch.zeros((1, 32), dtype=torch.uint8), torch.tensor([True]))
+
+
+class TestBreakscore:
+    def test_vs_jax(self):
+        rng = np.random.default_rng(5)
+        seg = rand_dna(rng, 160)
+        paths = [seg[i:] for i in (0, 1, 2, 3, 7)] + [rand_dna(rng, 90), seg[:60]]
+        reads = [seg[p : p + 12] for p in rng.integers(0, 149, 120)]
+        reads += [rand_dna(rng, 12) for _ in range(5)]  # mostly unmatched
+        uniq, counts = np.unique(np.stack([encode_dna(r) for r in reads]), axis=0,
+                                 return_counts=True)
+        pmat, plen = pack(paths + [""], 256)  # one pad row with length 0
+        rvalid = np.ones(len(uniq), bool)
+        rvalid[-1] = False
+        probs = np.asarray(load_default_query_table().combined, np.float32)
+        args = (pmat, plen, uniq.astype(np.uint8), counts.astype(np.int32), rvalid, probs)
+        j = j_breakscore(*(jnp.asarray(a) for a in args), break_kmer=8)
+        t = t_breakscore(*(torch.from_numpy(a) for a in args), break_kmer=8)
+        np.testing.assert_array_equal(t.kmer_breaks.numpy(), np.asarray(j.kmer_breaks))
+        np.testing.assert_array_equal(t.site_counts.numpy(), np.asarray(j.site_counts))
+        for name in ("bp_score", "bp_score_norm_by_break_freqs", "bp_score_norm_by_len",
+                     "path_freq"):
+            np.testing.assert_allclose(getattr(t, name).numpy(),
+                                       np.asarray(getattr(j, name)), rtol=RTOL,
+                                       err_msg=name)
+        assert np.isnan(t.path_freq.numpy()[-1]).all()  # the pad row
+
+
+class TestKS:
+    def _inputs(self):
+        rng = np.random.default_rng(7)
+        y = rng.random(97).astype(np.float32)
+        xs = rng.random((5, 200)).astype(np.float32)
+        xs[1, :150] = 0.0  # heavy ties, as real path_freq rows
+        xs[2, :50] = y[:50]  # ties across the two samples
+        return xs, y
+
+    def test_unmasked_with_nan_row(self):
+        xs, y = self._inputs()
+        xs[3, 4] = np.nan
+        j = np.asarray(jks.batched_ks_2samp(jnp.asarray(xs), jnp.asarray(y)))
+        t = tks.batched_ks_2samp(torch.from_numpy(xs), torch.from_numpy(y)).numpy()
+        assert np.isnan(t[3]) and np.isnan(j[3])
+        np.testing.assert_allclose(t, j, rtol=RTOL)
+
+    def test_masked(self):
+        xs, y = self._inputs()
+        valid = np.random.default_rng(8).random(xs.shape) < 0.6
+        valid[4] = False  # no valid entries: NaN
+        j = np.asarray(jks.batched_ks_2samp_masked(jnp.asarray(xs), jnp.asarray(valid),
+                                                   jnp.asarray(y)))
+        t = tks.batched_ks_2samp_masked(torch.from_numpy(xs), torch.from_numpy(valid),
+                                        torch.from_numpy(y)).numpy()
+        assert np.isnan(t[4])
+        np.testing.assert_allclose(t, j, rtol=RTOL)
+
+
+def pallas_test_cases():
+    """The cases of tests/test_pallas_kernels.py (TestMyersLevenshtein):
+    random queries, whole target and an infix; multi-word and empty ones."""
+    rng = np.random.default_rng(0)
+    target = rand_dna(rng, 90)
+    queries = [rand_dna(rng, int(rng.integers(1, 120))) for _ in range(9)]
+    queries += [target, target[10:40]]
+    rng = np.random.default_rng(1)
+    target2 = rand_dna(rng, 150)
+    queries2 = [rand_dna(rng, 200), target2 + "ACGT" * 10, ""]
+    return [(queries, target), (queries2, target2)]
+
+
+class TestLevenshtein:
+    @pytest.mark.parametrize("mode", ["NW", "HW"])
+    @pytest.mark.parametrize("case", [0, 1])
+    def test_plain_vs_jax_scan_and_myers(self, mode, case):
+        queries, target = pallas_test_cases()[case]
+        qmat, qlen = pack(queries, pad=0)
+        tgt = encode_dna(target)
+        batched_levenshtein_myers.launches = 0
+        got = t_lev_auto(torch.from_numpy(qmat), torch.from_numpy(qlen),
+                         torch.from_numpy(tgt), mode=mode).numpy()
+        assert batched_levenshtein_myers.launches == 0  # CPU tensors: plain DP
+        np.testing.assert_array_equal(
+            got, t_lev(torch.from_numpy(qmat), torch.from_numpy(qlen),
+                       torch.from_numpy(tgt), mode=mode).numpy())
+        jargs = (jnp.asarray(qmat), jnp.asarray(qlen), jnp.asarray(tgt))
+        np.testing.assert_array_equal(got, np.asarray(j_lev(*jargs, mode=mode)))
+        np.testing.assert_array_equal(
+            got, np.asarray(j_myers(*jargs, mode=mode, block_b=128, interpret=True)))
+        assert got.tolist() == [spec.levenshtein(q, target, mode=mode) for q in queries]
+
+    def test_wrapper_rejects_mixed_devices_and_modes(self):
+        q = torch.zeros((1, 4), dtype=torch.uint8)
+        with pytest.raises(ValueError):
+            batched_levenshtein_myers(q, torch.tensor([4], dtype=torch.int32),
+                                      torch.zeros(3, dtype=torch.uint8), mode="SHW")
+        with pytest.raises(ValueError):
+            batched_levenshtein_myers(q, torch.tensor([4], dtype=torch.int32),
+                                      torch.zeros(3, dtype=torch.uint8, device="meta"))

@@ -1,0 +1,159 @@
+"""PyTorch port vs the JAX package end to end: Assembler.run_experiment on a
+replayed read set (all 13 result columns and the stats), the own_k9_rl12
+golden fixture, and the port's independence from jax."""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+
+from genomeassembler_dev_tpu.core.encoding import encode_dna  # noqa: E402
+from genomeassembler_dev_tpu.core.querytable import load_default_query_table  # noqa: E402
+from genomeassembler_dev_tpu.pipeline import assembler as jasm  # noqa: E402
+from genomeassembler_dev_tpu.pipeline.config import ExperimentConfig as JConfig  # noqa: E402
+from genomeassembler_dev_tpu.sim.reads import generate_reads  # noqa: E402
+from genomeassembler_dev_tpu.sim.segments import synthetic_genome  # noqa: E402
+from genomeassembler_dev_tpu_torch.core.querytable import QueryTable  # noqa: E402
+from genomeassembler_dev_tpu_torch.pipeline import assembler as tasm  # noqa: E402
+from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURE = os.path.join(REPO, "tests", "golden", "fixtures", "own_k9_rl12.json")
+RTOL = 2e-5
+INT_COLUMNS = ("sequence_len", "kmer_breaks", "lev_dist_vs_true")
+SMALL = dict(seq_len=300, read_len=12, coverage_target=15.0, kmer=8, dbg_kmer=9,
+             seed=1234, n_orderings=300)
+
+
+def by_sequence(cols):
+    """Row index of each sequence: rows tied on bp_score may order
+    differently on two backends, so rows are aligned by sequence."""
+    return {s: i for i, s in enumerate(cols["sequence"])}
+
+
+@pytest.fixture(scope="module")
+def jtable():
+    return load_default_query_table()
+
+
+@pytest.fixture(scope="module")
+def replayed(jtable):
+    """One JAX-simulated read set (with a planted repeat, so several
+    solutions) through both pipelines."""
+    g = synthetic_genome(42, 300)
+    segment = g[:150] + g[30:70] + g[150:260]
+    rs = generate_reads(jax.random.key(1234), encode_dna(segment), jtable, 12, 15.0)
+    read_set = tuple(np.asarray(a) for a in (rs.codes, rs.valid, rs.positions))
+    jres = jasm.Assembler(JConfig(**SMALL), jtable).run_experiment(segment, read_set)
+    asm = tasm.Assembler(ExperimentConfig(**SMALL), "cpu",
+                         QueryTable.from_numpy(jtable.probs, "cpu"))
+    return jres, asm.run_experiment(segment, read_set)
+
+
+def test_all_columns_vs_jax(replayed):
+    jres, tres = replayed
+    assert list(tres.columns) == tasm.RESULT_COLUMNS == jasm.RESULT_COLUMNS
+    assert tres.n_solutions == jres.n_solutions > 1
+    jrow = by_sequence(jres.columns)
+    assert set(jrow) == set(tres.columns["sequence"])
+    idx = [jrow[s] for s in tres.columns["sequence"]]
+    for name in tasm.RESULT_COLUMNS[1:]:
+        got = np.asarray(tres.columns[name])
+        want = np.asarray(jres.columns[name])[idx]
+        if name in INT_COLUMNS:
+            np.testing.assert_array_equal(got, want, err_msg=name)
+        else:
+            np.testing.assert_allclose(got, want, rtol=RTOL, err_msg=name)
+    bp = tres.columns["bp_score_true"]
+    assert (np.diff(bp) <= 0).all()  # rows by true-table bp_score, descending
+
+
+def test_stats_and_timings(replayed):
+    jres, tres = replayed
+    assert tres.stats == jres.stats
+    assert set(tres.timings) == {
+        "Running DBG de novo genome assembler", "Merging shuffled contig orderings",
+        "Evaluating each de novo assembled solution"}
+
+
+def test_golden_own_k9_rl12():
+    with open(FIXTURE) as f:
+        fx = json.load(f)
+    c, ref = fx["config"], fx["reference"]
+    cfg = ExperimentConfig(seq_len=c["seq_len"], read_len=c["read_len"],
+                           dbg_kmer=c["dbg_kmer"], kmer=c["break_kmer"], seed=c["seed"],
+                           n_orderings=ref["n_orderings"])
+    asm = tasm.Assembler(cfg, "cpu")
+    codes = np.stack([encode_dna(r) for r in fx["reads"]])
+    read_set = (codes, np.ones(len(codes), bool), np.zeros(len(codes), np.int32))
+    rs = asm._replay_read_set(torch.from_numpy(encode_dna(fx["segment"])), read_set)
+    timer = tasm.StageTimer("cpu", verbose=False)
+    assert asm.contigs(rs.codes, rs.valid, timer) == ref["contigs"]
+    res = asm.run_experiment(fx["segment"], read_set)
+    assert sorted(res.columns["sequence"]) == sorted(ref["solutions"])
+    row = by_sequence(res.columns)
+    idx = [row[s] for s in ref["sequence"]]
+    for name, col in (("kmer_breaks", "kmer_breaks"), ("lev_dist_vs_true", "lev_dist_vs_true"),
+                      ("sequence_len", "sequence_len")):
+        np.testing.assert_array_equal(np.asarray(res.columns[col])[idx], ref[name])
+    for name, col in (("bp_score", "bp_score_true"),
+                      ("bp_score_norm_by_break_freqs", "bp_score_norm_by_break_freqs_true"),
+                      ("bp_score_norm_by_len", "bp_score_norm_by_len_true")):
+        np.testing.assert_allclose(np.asarray(res.columns[col])[idx], ref[name], rtol=RTOL)
+
+
+def test_config_mirrors_jax():
+    names = [f.name for f in dataclasses.fields(JConfig)]
+    assert [f.name for f in dataclasses.fields(ExperimentConfig)] == names
+    assert all(getattr(ExperimentConfig(), n) == getattr(JConfig(), n) for n in names)
+    assert ExperimentConfig.OWN_STUDY_GRID == JConfig.OWN_STUDY_GRID
+    for bad in (dict(kmer=5), dict(dbg_kmer=40), dict(read_len=8, dbg_kmer=9),
+                dict(n_orderings=0), dict(traversal="x")):
+        with pytest.raises(ValueError):
+            JConfig(**bad).validate()
+        with pytest.raises(ValueError):
+            ExperimentConfig(**bad).validate()
+
+
+def test_unported_paths_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tasm.Assembler(ExperimentConfig(**SMALL, traversal="biased"), "cpu")
+    asm = tasm.Assembler(ExperimentConfig(**{**SMALL, "read_len": 16, "dbg_kmer": 13}), "cpu")
+    with pytest.raises(NotImplementedError, match="sparse"):
+        asm.run_experiment(synthetic_genome(1, 300))
+
+
+def test_pack_strings_pad_rows():
+    mat, lens = tasm.pack_strings(["ACG", "T"], s_multiple=4, l_multiple=8)
+    assert mat.shape == (4, 8) and lens.tolist() == [3, 1, 0, 0]
+    assert (mat[1, 1:] == 255).all() and (mat[2:] == 255).all()
+    codes, counts, valid = tasm.pad_reads(torch.ones((3, 5), dtype=torch.uint8),
+                                          torch.tensor([2, 1, 4], dtype=torch.int32), 4)
+    assert codes.shape == (4, 5) and counts.tolist() == [2, 1, 4, 0]
+    assert valid.tolist() == [True, True, True, False]
+
+
+def test_port_imports_no_jax():
+    modules = [
+        "genomeassembler_dev_tpu_torch.pipeline.assembler",
+        "genomeassembler_dev_tpu_torch.ops.myers",
+        "genomeassembler_dev_tpu_torch.dbg.assemble",
+        "genomeassembler_dev_tpu_torch.merge.engine",
+        "genomeassembler_dev_tpu_torch.sim.segments",
+    ]
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in modules)
+            + "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+              " or m.split('.')[0] == 'genomeassembler_dev_tpu']\n"
+              "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
