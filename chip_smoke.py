@@ -1,22 +1,37 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (genomeassembler_dev_tpu_torch) on one
-NVIDIA GPU: builds the Myers Levenshtein kernel from csrc/myers.cu, holds it
-against its plain PyTorch version, replays the own_k9_rl12 golden fixture,
-then drives eight own-dBG experiments at the study shape through
-Assembler.run_experiment and checks them against the native C++ engine.
+NVIDIA GPU.
+
+  [1] the card;
+  [2] builds the three kernels from csrc/ (myers.cu, histogram.cu,
+      prefix_min.cu), all nvcc processes at once;
+  [3] holds the Myers kernel against the plain DP, and [3b] the prefix-min
+      kernel against the same plain results and the Myers kernel;
+  [3c] holds the histogram kernel against its plain version and the native
+      C++ k-mer counter;
+  [4] replays the golden fixtures own_k9_rl12, own_k13_rl16 and own_k15_rl20;
+  [5] drives eight own-dBG experiments at the study shape through
+      Assembler.run_experiment and checks them against the native engine;
+  [6] runs `cli study-all` in process: the full own grid (7 rows x 4
+      iterations at the study shape), the k-mer-count study and the GC
+      study, then checks every artifact against the native engine, the
+      prefix-min kernel and the plain DP.
 
     python3 chip_smoke.py
 
 Needs a CUDA card, nvcc for sm_90a and a C++ compiler for native/. Every
-phase's check raises on a mismatch, so any failure exits non-zero. The last
-line is {"ok": true, "device": {...}}; the line before it is nvidia-smi's
-name and power limit, and the one before that the kernel record.
+check raises on a mismatch, so any failure exits non-zero. The last line is
+{"ok": true, "device": {...}}; the line before it is nvidia-smi's name and
+power limit, and the one before that the kernel record.
 """
 
 from __future__ import annotations
 
+import csv
+import glob
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -25,9 +40,17 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-GOLDEN = os.path.join(HERE, "tests", "golden", "fixtures", "own_k9_rl12.json")
-KERNEL_SOURCE = "genomeassembler_dev_tpu_torch/csrc/myers.cu"
-REPLACES = "genomeassembler_dev_tpu/ops/pallas/myers_kernel.py:58"
+FIXTURES = [os.path.join(HERE, "tests", "golden", "fixtures", f"{n}.json")
+            for n in ("own_k9_rl12", "own_k13_rl16", "own_k15_rl20")]
+STUDY_DIR = os.path.join(HERE, "build", "smoke_study")
+STUDY_ITERS = 4
+KERNELS = {  # name in the record: (csrc name, TPU kernel it replaces)
+    "myers_levenshtein": ("myers", "genomeassembler_dev_tpu/ops/pallas/myers_kernel.py:58"),
+    "kmer_histogram": ("histogram",
+                       "genomeassembler_dev_tpu/ops/pallas/histogram_kernel.py:27"),
+    "prefix_min_levenshtein": ("prefix_min",
+                               "genomeassembler_dev_tpu/ops/pallas/edit_distance_kernel.py:32"),
+}
 RTOL = 2e-5  # float32 scores: the JAX package's float32 tolerance
 
 
@@ -65,22 +88,38 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def max_err(got: torch.Tensor, want: torch.Tensor) -> int:
+    return int((got.long() - want.long()).abs().max()) if got.numel() else 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 1
+    from genomeassembler_dev_tpu_torch import cli
     from genomeassembler_dev_tpu_torch.core.encoding import encode_dna
     from genomeassembler_dev_tpu_torch.merge import native
-    from genomeassembler_dev_tpu_torch.ops import myers
+    from genomeassembler_dev_tpu_torch.ops import cuda_build, myers
     from genomeassembler_dev_tpu_torch.ops.edit_distance import batched_levenshtein
-    from genomeassembler_dev_tpu_torch.pipeline.assembler import Assembler, pack_strings
+    from genomeassembler_dev_tpu_torch.ops.histogram import (
+        count_kmers_batched, count_kmers_batched_plain)
+    from genomeassembler_dev_tpu_torch.ops.prefix_min import batched_levenshtein_prefix_min
+    from genomeassembler_dev_tpu_torch.ops.windows import kmer_window_codes
+    from genomeassembler_dev_tpu_torch.pipeline import results as res_io
+    from genomeassembler_dev_tpu_torch.pipeline.assembler import (
+        RESULT_COLUMNS, Assembler, pack_strings)
     from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
-    from genomeassembler_dev_tpu_torch.sim.segments import synthetic_genome
+    from genomeassembler_dev_tpu_torch.sim.segments import (
+        synthetic_genome, synthetic_segment_store)
     from genomeassembler_dev_tpu_torch.utils.timers import StageTimer
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    record = {name: {"name": name, "route": "cuda",
+                     "source": f"genomeassembler_dev_tpu_torch/csrc/{src}.cu",
+                     "replaces": replaces, "max_abs_err": 0}
+              for name, (src, replaces) in KERNELS.items()}
 
     # -- phase 1: the card ----------------------------------------------------
     smi = subprocess.run(
@@ -91,31 +130,33 @@ def main() -> int:
     print(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
 
-    # -- phase 2: build the kernel --------------------------------------------
+    # -- phase 2: build the kernels -------------------------------------------
     t0 = time.perf_counter()
-    so = myers.build()
-    print(f"[2] built {os.path.relpath(so, HERE)} in {time.perf_counter() - t0:.2f} s")
-    with open(so + ".log") as f:
-        for line in f:
-            if "registers" in line or "spill" in line:
-                print(f"[2] ptxas: {line.strip()}")
+    libs = cuda_build.build(*(src for src, _ in KERNELS.values()))
+    check(myers.build() == libs[0], "myers.build() names another library")
+    print(f"[2] built {len(libs)} kernels in {time.perf_counter() - t0:.2f} s")
+    for so in libs:
+        with open(so + ".log") as f:
+            for line in f:
+                if "registers" in line or "spill" in line:
+                    print(f"[2] {os.path.basename(so)} ptxas: {line.strip()}")
 
-    # -- phase 3: kernel vs plain DP on the card ------------------------------
+    # -- phase 3: Myers kernel vs plain DP on the card ------------------------
     def to_dev(queries, target):
         mat, lens = pack_strings(queries, pad=0)
         return (torch.from_numpy(mat).to(dev), torch.from_numpy(lens).to(dev),
                 torch.from_numpy(encode_dna(target)).to(dev))
 
-    max_err = 0
+    lev_cases = []  # (name, args, mode, plain result, Myers result)
 
     def compare(name, args, mode):
-        nonlocal max_err
         got = myers.batched_levenshtein_myers(*args, mode=mode)
         want = batched_levenshtein(*args, mode=mode)
         torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
-        max_err = max(max_err, err)
+        rec = record["myers_levenshtein"]
+        rec["max_abs_err"] = max(rec["max_abs_err"], max_err(got, want))
         check(torch.equal(got, want), f"{name} {mode}: kernel != plain DP")
+        lev_cases.append((name, args, mode, want, got))
         print(f"[3] {name} {mode}: {got.numel()} distances equal")
 
     rng = np.random.default_rng(0)
@@ -145,6 +186,7 @@ def main() -> int:
     k_ms = cuda_ms(lambda: myers.batched_levenshtein_myers(*slice_args, mode="NW"), 20)
     p_ms = cuda_ms(lambda: batched_levenshtein(*slice_args, mode="NW"), 3)
     print(f"[3] slice 512x2048x1000 NW: kernel {k_ms:.3f} ms, plain DP {p_ms:.3f} ms")
+    record["myers_levenshtein"].update(ms=k_ms, plain_ms=p_ms)
 
     # the velvet path's default shape: 256 x 2048 queries, HW, 50 kb target
     rng = np.random.default_rng(3)
@@ -156,33 +198,94 @@ def main() -> int:
     hp_ms = cuda_ms(lambda: batched_levenshtein(*hw_args, mode="HW"), 1)
     print(f"[3] velvet 256x2048x50000 HW: kernel {hk_ms:.3f} ms, plain DP {hp_ms:.3f} ms")
 
-    # -- phase 4: the own_k9_rl12 golden fixture ------------------------------
-    with open(GOLDEN) as f:
-        fx = json.load(f)
-    c, ref = fx["config"], fx["reference"]
-    gcfg = ExperimentConfig(seq_len=c["seq_len"], read_len=c["read_len"],
-                            dbg_kmer=c["dbg_kmer"], kmer=c["break_kmer"], seed=c["seed"],
-                            n_orderings=ref["n_orderings"])
-    gasm = Assembler(gcfg, dev)
-    codes = np.stack([encode_dna(r) for r in fx["reads"]])
-    read_set = (codes, np.ones(len(codes), bool), np.zeros(len(codes), np.int32))
-    rs = gasm._replay_read_set(torch.from_numpy(encode_dna(fx["segment"])).to(dev), read_set)
-    check(gasm.contigs(rs.codes, rs.valid, StageTimer(dev, False)) == ref["contigs"],
-          "golden contigs")
-    res = gasm.run_experiment(fx["segment"], read_set)
-    cols = res.columns
-    check(sorted(cols["sequence"]) == sorted(ref["solutions"]), "golden solution set")
-    row = {s: i for i, s in enumerate(cols["sequence"])}
-    idx = [row[s] for s in ref["sequence"]]
-    for col, key in (("kmer_breaks", "kmer_breaks"), ("lev_dist_vs_true", "lev_dist_vs_true")):
-        check(np.array_equal(np.asarray(cols[col])[idx], ref[key]), f"golden {col}")
-    for col, key in (("bp_score_true", "bp_score"),
-                     ("bp_score_norm_by_break_freqs_true", "bp_score_norm_by_break_freqs"),
-                     ("bp_score_norm_by_len_true", "bp_score_norm_by_len")):
-        check(np.allclose(np.asarray(cols[col])[idx], ref[key], rtol=RTOL, atol=0),
-              f"golden {col}")
-    print(f"[4] own_k9_rl12: {len(ref['contigs'])} contigs, {res.n_solutions} solutions, "
-          "breaks and distances equal, scores within rtol 2e-5")
+    # -- phase 3b: prefix-min kernel vs the same plain results and Myers ------
+    rec = record["prefix_min_levenshtein"]
+    for name, args, mode, want, k1 in lev_cases:
+        got = batched_levenshtein_prefix_min(*args, mode=mode)
+        torch.cuda.synchronize()
+        rec["max_abs_err"] = max(rec["max_abs_err"], max_err(got, want))
+        check(torch.equal(got, want), f"{name} {mode}: prefix-min kernel != plain DP")
+        check(torch.equal(got, k1), f"{name} {mode}: prefix-min kernel != Myers kernel")
+        print(f"[3b] {name} {mode}: {got.numel()} distances equal to plain DP and Myers")
+    m_ms = cuda_ms(lambda: batched_levenshtein_prefix_min(*slice_args, mode="NW"), 20)
+    print(f"[3b] slice 512x2048x1000 NW: kernel {m_ms:.3f} ms, Myers {k_ms:.3f} ms, "
+          f"plain DP {p_ms:.3f} ms")
+    mh_ms = cuda_ms(lambda: batched_levenshtein_prefix_min(*hw_args, mode="HW"), 3)
+    print(f"[3b] velvet 256x2048x50000 HW: kernel {mh_ms:.3f} ms, Myers {hk_ms:.3f} ms, "
+          f"plain DP {hp_ms:.3f} ms")
+    rec.update(ms=m_ms, plain_ms=p_ms)
+
+    # -- phase 3c: histogram kernel vs plain and the native counter -----------
+    rec = record["kmer_histogram"]
+
+    def hist_case(name, codes, valid, bins, native_counts=None):
+        got = count_kmers_batched(codes, valid, bins)
+        want = count_kmers_batched_plain(codes, valid, bins)
+        torch.cuda.synchronize()
+        rec["max_abs_err"] = max(rec["max_abs_err"], max_err(got, want))
+        check(torch.equal(got, want), f"{name}: histogram kernel != plain")
+        if native_counts is not None:
+            check(np.array_equal(got.cpu().numpy(), native_counts),
+                  f"{name}: histogram kernel != native counter")
+        print(f"[3c] {name}: {got.shape[0]} x {bins} counts equal"
+              + (" (and to the native counter)" if native_counts is not None else ""))
+
+    for k in (4, 8, 9):  # the cases of tests/test_pallas_kernels.py
+        rng = np.random.default_rng(k)
+        codes = torch.from_numpy(rng.integers(0, 4**k, (2, 700)).astype(np.int32)).to(dev)
+        valid = torch.from_numpy(rng.random((2, 700)) < 0.9).to(dev)
+        hist_case(f"k {k} [2, 700] 10% invalid", codes, valid, 4**k)
+        hist_case(f"k {k} one row all invalid", codes,
+                  torch.stack([valid[0], torch.zeros_like(valid[1])]), 4**k)
+        hist_case(f"k {k} one bin (contention)", torch.full((1, 70000), 4**k - 1,
+                                                            dtype=torch.int64, device=dev),
+                  torch.ones((1, 70000), dtype=torch.bool, device=dev), 4**k)
+    # the TPU kernel's measurement shape: 256 segments of 3,333 reads of 12
+    # bases, 5 octamer windows each; every row also against the native counter
+    rng = np.random.default_rng(8)
+    reads = rng.integers(0, 4, (256, 3333, 12)).astype(np.uint8)
+    reads[:, :50, 6] = 255  # an N in 50 reads of every segment
+    codes, valid = kmer_window_codes(torch.from_numpy(reads).to(dev), 8)
+    codes, valid = codes.reshape(256, -1), valid.reshape(256, -1)
+    check(codes.shape == (256, 16665), f"histogram shape {tuple(codes.shape)}")
+    native_rows = np.stack([native.count_kmers_native(
+        ["".join("ACGTN"[min(c, 4)] for c in r) for r in seg], 8) for seg in reads])
+    hist_case("B 256 x N 16665, k 8", codes, valid, 4**8, native_rows)
+    h_ms = cuda_ms(lambda: count_kmers_batched(codes, valid, 4**8), 20)
+    hp_ms2 = cuda_ms(lambda: count_kmers_batched_plain(codes, valid, 4**8), 20)
+    print(f"[3c] B 256 x N 16665, k 8: kernel {h_ms:.3f} ms, plain {hp_ms2:.3f} ms")
+    rec.update(ms=h_ms, plain_ms=hp_ms2)
+
+    # -- phase 4: the golden fixtures -----------------------------------------
+    for path in FIXTURES:
+        with open(path) as f:
+            fx = json.load(f)
+        c, ref = fx["config"], fx["reference"]
+        gcfg = ExperimentConfig(seq_len=c["seq_len"], read_len=c["read_len"],
+                                dbg_kmer=c["dbg_kmer"], kmer=c["break_kmer"], seed=c["seed"],
+                                n_orderings=ref["n_orderings"])
+        gasm = Assembler(gcfg, dev)
+        codes = np.stack([encode_dna(r) for r in fx["reads"]])
+        read_set = (codes, np.ones(len(codes), bool), np.zeros(len(codes), np.int32))
+        rs = gasm._replay_read_set(torch.from_numpy(encode_dna(fx["segment"])).to(dev),
+                                   read_set)
+        check(gasm.contigs(rs.codes, rs.valid, StageTimer(dev, False)) == ref["contigs"],
+              f"{fx['name']} contigs")
+        res = gasm.run_experiment(fx["segment"], read_set)
+        cols = res.columns
+        check(sorted(cols["sequence"]) == sorted(ref["solutions"]),
+              f"{fx['name']} solution set")
+        row = {s: i for i, s in enumerate(cols["sequence"])}
+        idx = [row[s] for s in ref["sequence"]]
+        for col in ("kmer_breaks", "lev_dist_vs_true"):
+            check(np.array_equal(np.asarray(cols[col])[idx], ref[col]), f"{fx['name']} {col}")
+        for col, key in (("bp_score_true", "bp_score"),
+                         ("bp_score_norm_by_break_freqs_true", "bp_score_norm_by_break_freqs"),
+                         ("bp_score_norm_by_len_true", "bp_score_norm_by_len")):
+            check(np.allclose(np.asarray(cols[col])[idx], ref[key], rtol=RTOL, atol=0),
+                  f"{fx['name']} {col}")
+        print(f"[4] {fx['name']}: {len(ref['contigs'])} contigs, {res.n_solutions} "
+              "solutions, breaks and distances equal, scores within rtol 2e-5")
 
     # -- phase 5: eight experiments at the study shape ------------------------
     cfg = ExperimentConfig(seq_len=1000, read_len=12, dbg_kmer=9, coverage_target=40.0,
@@ -202,6 +305,11 @@ def main() -> int:
         for name, t in res.timings.items():
             stage_sum[name] = stage_sum.get(name, 0.0) + t
     probs = asm.table.combined.cpu().numpy()
+
+    def reads_of(rs) -> list[str]:
+        valid = rs.valid.cpu().numpy()
+        return ["".join("ACGT"[b] for b in r) for r in rs.codes.cpu().numpy()[valid]]
+
     for i, (segment, res) in enumerate(zip(segments, results)):
         cols = res.columns
         n = res.n_solutions
@@ -211,9 +319,8 @@ def main() -> int:
         # the same seed gives the same reads: re-simulate and check each stage
         timer = StageTimer(dev, False)
         rs = asm.simulate(torch.from_numpy(encode_dna(segment)).to(dev), timer)
-        valid = rs.valid.cpu().numpy()
-        check(int(valid.sum()) == res.stats["nr_of_reads"], f"exp {i}: read count")
-        reads = ["".join("ACGT"[b] for b in r) for r in rs.codes.cpu().numpy()[valid]]
+        reads = reads_of(rs)
+        check(len(reads) == res.stats["nr_of_reads"], f"exp {i}: read count")
         contigs = asm.contigs(rs.codes, rs.valid, timer)
         check(contigs == native.contigs_from_reads_native(reads, cfg.dbg_kmer),
               f"exp {i}: contigs != native engine")
@@ -235,12 +342,107 @@ def main() -> int:
         print(f"[5] stage {name}: {1e3 * t / len(results):.2f} ms per experiment")
     print(f"[5] {len(results)} experiments in {wall:.3f} s -> "
           f"{len(results) / wall:.3f} experiments/s; Myers launches {launches}")
-    print(f"[6] total {time.perf_counter() - t_start:.1f} s")
 
-    print(json.dumps({"kernels": [{
-        "name": "myers_levenshtein", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
-        "ms": k_ms, "plain_ms": p_ms}]}))
+    # -- phase 6: the study chain, cli study-all ------------------------------
+    shutil.rmtree(STUDY_DIR, ignore_errors=True)
+    argv = ["study-all", "--synthetic", "--total-iters", str(STUDY_ITERS),
+            "--workdir", STUDY_DIR, "--device", "cuda"]
+    torch.cuda.synchronize()
+    myers.batched_levenshtein_myers.launches = 0
+    count_kmers_batched.launches = 0
+    batched_levenshtein_prefix_min.launches = 0
+    t0 = time.time()
+    cli.main(argv)
+    chain_wall = time.time() - t0
+    record["myers_levenshtein"]["launches"] = myers.batched_levenshtein_myers.launches
+    record["kmer_histogram"]["launches"] = count_kmers_batched.launches
+    check(batched_levenshtein_prefix_min.launches == 0, "prefix-min launched in the chain")
+    for name in ("myers_levenshtein", "kmer_histogram"):
+        check(record[name]["launches"] > 0, f"{name} was not launched by study-all")
+    print(f"[6] study-all: {chain_wall:.3f} s; launches in the chain: Myers "
+          f"{record['myers_levenshtein']['launches']}, histogram "
+          f"{record['kmer_histogram']['launches']}")
+
+    base = ExperimentConfig(seq_len=1000, read_len=12, dbg_kmer=9, kmer=8,
+                            coverage_target=40.0, seed=1234, n_orderings=10000)
+    segs = synthetic_segment_store(base.seed, base.seq_len, STUDY_ITERS)
+    n_solutions = 0
+    last_write = t0
+    for read_len, dbg_kmer in ExperimentConfig.OWN_STUDY_GRID:
+        cfg = base.with_(read_len=read_len, dbg_kmer=dbg_kmer)
+        asm = Assembler(cfg, dev)
+        stage_sum = {}
+        row_end = last_write
+        for ind in range(1, STUDY_ITERS + 1):
+            what = f"row {read_len}:{dbg_kmer} exp {ind}"
+            path = res_io.solutions_path(STUDY_DIR, ind, cfg)
+            check(os.path.exists(path) and os.path.exists(
+                res_io.stats_path(STUDY_DIR, ind, cfg)), f"{what}: artifacts")
+            row_end = max(row_end, os.path.getmtime(path))
+            with open(path, newline="") as f:
+                check(next(csv.reader(f)) == RESULT_COLUMNS, f"{what}: columns")
+            cols = res_io.load_result_columns(path)
+            with open(res_io.stats_path(STUDY_DIR, ind, cfg)) as f:
+                for name, t in json.load(f)["timings"].items():
+                    stage_sum[name] = stage_sum.get(name, 0.0) + t
+            n_solutions += len(cols["sequence"])
+            segment = segs.seqs[ind - 1]
+            target = torch.from_numpy(encode_dna(segment)).to(dev)
+            timer = StageTimer(dev, False)
+            rs = asm.simulate(target, timer)
+            reads = reads_of(rs)
+            check(asm.contigs(rs.codes, rs.valid, timer)
+                  == native.contigs_from_reads_native(reads, dbg_kmer),
+                  f"{what}: contigs != native engine")
+            scores, breaks = native.breakscore_native(cols["sequence"], reads, probs)
+            check(np.array_equal(cols["kmer_breaks"], breaks),
+                  f"{what}: kmer_breaks != native engine")
+            check(np.allclose(cols["bp_score_true"], scores, rtol=RTOL, atol=0),
+                  f"{what}: bp_score != native engine")
+            mat, lens = pack_strings(cols["sequence"])
+            args = (torch.from_numpy(mat).to(dev), torch.from_numpy(lens).to(dev), target)
+            k3 = batched_levenshtein_prefix_min(*args, mode="NW").cpu().numpy()
+            check(np.array_equal(cols["lev_dist_vs_true"], k3),
+                  f"{what}: lev_dist_vs_true != prefix-min kernel")
+            if ind == 1:
+                plain = batched_levenshtein(*args, mode="NW").cpu().numpy()
+                check(np.array_equal(cols["lev_dist_vs_true"], plain),
+                      f"{what}: lev_dist_vs_true != plain DP")
+        secs = row_end - last_write
+        last_write = row_end
+        print(f"[6] row {read_len}:{dbg_kmer}: {STUDY_ITERS} experiments agree with the "
+              f"native engine, the prefix-min kernel and (exp 1) the plain DP; "
+              f"{STUDY_ITERS / secs:.3f} experiments/s (artifact write times); stage ms "
+              "per experiment: " + ", ".join(
+                  f"{name} {1e3 * t / STUDY_ITERS:.2f}" for name, t in stage_sum.items()))
+    record["prefix_min_levenshtein"]["launches"] = batched_levenshtein_prefix_min.launches
+    check(batched_levenshtein_prefix_min.launches > 0, "prefix-min checked nothing")
+
+    out_dir = os.path.join(STUDY_DIR, "IndustryModel_False")
+    n_exp = len(ExperimentConfig.OWN_STUDY_GRID) * STUDY_ITERS
+    for name, rows in (("results_summary.csv", 2 * n_exp), ("results_all.csv", n_solutions)):
+        with open(os.path.join(out_dir, name)) as f:
+            got = sum(1 for _ in f) - 1
+        check(got == rows, f"{name}: {got} rows, expected {rows}")
+    with open(os.path.join(STUDY_DIR, "gc_dependency.csv")) as f:
+        check(len(list(csv.DictReader(f))) == STUDY_ITERS, "gc_dependency.csv rows")
+    check(len(glob.glob(os.path.join(STUDY_DIR, "results", "exp_*", "*"))) == 2 * n_exp,
+          "artifact count")
+
+    with open(os.path.join(STUDY_DIR, "kmer_count_vs_prob.csv")) as f:
+        count_rows = list(csv.DictReader(f))
+    for k in (2, 4, 6, 8):
+        kcfg = base.with_(only_kmers_from_reads=True, kmer=k)
+        rs = Assembler(kcfg, dev).simulate(
+            torch.from_numpy(encode_dna(segs.seqs[0])).to(dev), StageTimer(dev, False))
+        want = native.count_kmers_native(reads_of(rs), k)
+        got = np.array([int(r["count"]) for r in count_rows if int(r["k"]) == k])
+        check(np.array_equal(got, want), f"kmer_count_vs_prob.csv k {k} != native counter")
+    print(f"[6] {n_exp} experiments, {n_solutions} solutions; summaries, GC table and "
+          "k-mer counts (k 2/4/6/8, equal to the native counter) agree")
+    print(f"[7] total {time.perf_counter() - t_start:.1f} s")
+
+    print(json.dumps({"kernels": list(record.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

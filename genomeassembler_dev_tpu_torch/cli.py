@@ -1,0 +1,199 @@
+"""Command-line interface of the port (mirrors genomeassembler_dev_tpu/cli.py).
+
+  python -m genomeassembler_dev_tpu_torch.cli run        # one experiment
+  python -m genomeassembler_dev_tpu_torch.cli study-own  # scripts/02 (grid x iters)
+  python -m genomeassembler_dev_tpu_torch.cli study-all  # 02 -> 01 -> 03
+  python -m genomeassembler_dev_tpu_torch.cli study-kmer-count  # scripts/01
+  python -m genomeassembler_dev_tpu_torch.cli study-gc   # scripts/03
+
+Segments come from --segments-fasta (the reference's SampledRefGenome
+contract) or a seeded synthetic store (--synthetic). Everything runs on
+--device (default cuda); without a card the port stops rather than run on the
+CPU, which has to be asked for with --device cpu. Not ported yet, and absent
+here: study-velvet, study-plots, fit-model and bench-scaling.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+
+def _add_common(p):
+    p.add_argument("--workdir", default="./workdir")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (cuda, cuda:1, cpu)")
+    p.add_argument("--seq-len", type=int, default=1000)
+    p.add_argument("--read-len", type=int, default=12)
+    p.add_argument("--dbg-kmer", type=int, default=9)
+    p.add_argument("--kmer", type=int, default=8)
+    p.add_argument("--coverage", type=float, default=40.0)
+    p.add_argument("--seed", type=int, default=1234)
+    p.add_argument("--n-orderings", type=int, default=10000)
+    p.add_argument("--traversal", default="standard",
+                   choices=["standard", "biased"],
+                   help="biased = probability-guided branch continuation "
+                        "(not ported yet)")
+    p.add_argument("--biased-max-solutions", type=int, default=256,
+                   help="keep the longest N biased assemblies as solutions")
+    p.add_argument("--segments-fasta", default=None)
+    p.add_argument("--synthetic", action="store_true",
+                   help="use a seeded synthetic segment store")
+    p.add_argument("--repeat-segments", action="store_true",
+                   help="plant segmental duplications in synthetic segments "
+                        "(repeat structure like real genomic sequence)")
+    p.add_argument("--total-iters", type=int, default=10)
+    p.add_argument("--verbose", action="store_true")
+    p.add_argument("--plots", action="store_true",
+                   help="per-experiment diagnostic plots (not ported yet)")
+
+
+def _add_study(p):
+    p.add_argument("--grid", default=None,
+                   help="comma list of read_len:dbg_kmer pairs, e.g. 12:9,14:9")
+    p.add_argument("--batched", action="store_true",
+                   help="batched device stages across segments (not ported yet)")
+    p.add_argument("--seg-batch", type=int, default=16,
+                   help="segments per batch with --batched")
+
+
+def _device(args):
+    import torch
+
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {args.device}: no CUDA device here "
+                         "(pass --device cpu to run on the CPU)")
+    return dev
+
+
+def _segments(args):
+    from genomeassembler_dev_tpu_torch.sim.segments import (
+        SegmentStore, synthetic_segment_store)
+
+    if args.segments_fasta:
+        return SegmentStore.load(args.segments_fasta)
+    return synthetic_segment_store(
+        args.seed, args.seq_len, args.total_iters,
+        repeats=getattr(args, "repeat_segments", False))
+
+
+def _config(args, **over):
+    from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
+
+    return ExperimentConfig(
+        seq_len=args.seq_len, read_len=args.read_len, dbg_kmer=args.dbg_kmer,
+        kmer=args.kmer, coverage_target=args.coverage, seed=args.seed,
+        n_orderings=args.n_orderings,
+        traversal=getattr(args, "traversal", "standard"),
+        biased_max_solutions=getattr(args, "biased_max_solutions", 256),
+    ).with_(**over)
+
+
+def _grid(args):
+    if not args.grid:
+        return None
+    return tuple(tuple(int(x) for x in pair.split(":")) for pair in args.grid.split(","))
+
+
+def _own_study(args, dev):
+    from genomeassembler_dev_tpu_torch.pipeline.experiments import run_own_study
+
+    return run_own_study(
+        args.workdir, _segments(args), dev, base=_config(args), grid=_grid(args),
+        total_iters=args.total_iters, verbose=args.verbose,
+        batched=args.batched, plots=args.plots,
+    )
+
+
+def cmd_run(args):
+    from genomeassembler_dev_tpu_torch.pipeline import results as res_io
+    from genomeassembler_dev_tpu_torch.pipeline.assembler import Assembler
+    from genomeassembler_dev_tpu_torch.pipeline.experiments import refuse_unported
+
+    refuse_unported(plots=args.plots)
+    dev = _device(args)
+    segs = _segments(args)
+    cfg = _config(args)
+    res = Assembler(cfg, dev, verbose=args.verbose).run_experiment(segs.seqs[args.ind - 1])
+    path = res_io.save_result(args.workdir, args.ind, cfg, res)
+    print(json.dumps({"solutions": res.n_solutions, "csv": path,
+                      "stats": {k: v for k, v in res.stats.items() if k != "genome_seq"}}))
+
+
+def cmd_study_own(args):
+    rep = _own_study(args, _device(args))
+    print(json.dumps({"summary": rep.summary_path, "all": rep.all_path,
+                      "ran": rep.n_experiments, "skipped": rep.n_skipped}))
+
+
+def cmd_study_all(args):
+    """scripts/submit.sh contract: study 02 (own) -> 01 (kmer count) ->
+    03 (GC), one command, shared workdir (run_genomeassembler_dev.sh:8-9)."""
+    from genomeassembler_dev_tpu_torch.pipeline.experiments import (
+        run_gc_study, run_kmer_count_study)
+
+    dev = _device(args)
+    rep = _own_study(args, dev)
+    segs = _segments(args)
+    r2 = run_kmer_count_study(args.workdir, segs.seqs[0], dev, base=_config(args))
+    gc_csv = run_gc_study(args.workdir, segs, _config(args), args.total_iters)
+    print(json.dumps({
+        "own": {"summary": rep.summary_path, "all": rep.all_path,
+                "ran": rep.n_experiments, "skipped": rep.n_skipped},
+        "kmer_count_r_squared": {str(k): v for k, v in r2.items()},
+        "gc_csv": gc_csv,
+    }))
+
+
+def cmd_study_kmer_count(args):
+    from genomeassembler_dev_tpu_torch.pipeline.experiments import run_kmer_count_study
+
+    dev = _device(args)
+    r2 = run_kmer_count_study(args.workdir, _segments(args).seqs[0], dev,
+                              base=_config(args))
+    print(json.dumps({"r_squared": {str(k): v for k, v in r2.items()}}))
+
+
+def cmd_study_gc(args):
+    from genomeassembler_dev_tpu_torch.pipeline.experiments import run_gc_study
+
+    out = run_gc_study(args.workdir, _segments(args), _config(args), args.total_iters)
+    print(json.dumps({"csv": out}))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="genomeassembler_dev_tpu_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("run", help="run one experiment")
+    _add_common(p)
+    p.add_argument("--ind", type=int, default=1, help="experiment index (1-based)")
+    p.set_defaults(fn=cmd_run)
+
+    p = sub.add_parser("study-own", help="own-dBG study grid (scripts/02)")
+    _add_common(p)
+    _add_study(p)
+    p.set_defaults(fn=cmd_study_own)
+
+    p = sub.add_parser("study-all",
+                       help="full study chain 02 -> 01 -> 03 (scripts/submit.sh)")
+    _add_common(p)
+    _add_study(p)
+    p.set_defaults(fn=cmd_study_all)
+
+    p = sub.add_parser("study-kmer-count", help="k-mer count vs prob (scripts/01)")
+    _add_common(p)
+    p.set_defaults(fn=cmd_study_kmer_count)
+
+    p = sub.add_parser("study-gc", help="GC dependency (scripts/03)")
+    _add_common(p)
+    p.set_defaults(fn=cmd_study_gc)
+
+    args = ap.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -21,6 +21,8 @@ for _i, _b in enumerate(BASES):
 
 _DEC_LUT = np.frombuffer(BASES.encode(), dtype=np.uint8)
 
+_COMPLEMENT = np.array([3, 2, 1, 0], dtype=np.uint8)  # A<->T, C<->G
+
 
 def encode_dna(seq: str | bytes) -> np.ndarray:
     """Encode an ASCII DNA string to uint8 codes (A=0,C=1,G=2,T=3, other=255)."""
@@ -35,3 +37,9 @@ def decode_dna(codes: np.ndarray) -> str:
     if codes.size and codes.max() > 3:
         raise ValueError("decode_dna: codes outside 0..3 (invalid/N present?)")
     return _DEC_LUT[codes].tobytes().decode()
+
+
+def reverse_complement(codes: np.ndarray) -> np.ndarray:
+    """Reverse complement of a code vector (codes in 0..3): read_2 of the
+    reference's simulator is the reverse complement of read_1."""
+    return _COMPLEMENT[np.asarray(codes, dtype=np.uint8)][::-1]

@@ -1,9 +1,11 @@
 """Reads -> dBG -> canonical contig set (mirrors
-genomeassembler_dev_tpu/dbg/assemble.py, dense path only).
+genomeassembler_dev_tpu/dbg/assemble.py).
 
-The JAX module retries under growing walk and node capacities so that its
-compiled shapes stay few. Eager PyTorch sizes every array exactly, so the
-ladder is gone; the overflow check on max_contig_len stays.
+Dispatch as in the JAX module: the dense path for k <= 10, the sparse
+int64 path above it up to k = 31, and a ValueError beyond. The JAX module
+retries under growing walk and node capacities so that its compiled shapes
+stay few. Eager PyTorch sizes every array exactly, so the ladder is gone;
+the overflow check on max_contig_len stays.
 """
 
 from __future__ import annotations
@@ -13,10 +15,9 @@ import torch
 
 from genomeassembler_dev_tpu_torch.core.encoding import decode_dna
 from genomeassembler_dev_tpu_torch.dbg.dense import contigs_dense
+from genomeassembler_dev_tpu_torch.dbg.graph import MAX_K, contigs_sparse
 from genomeassembler_dev_tpu_torch.ops.windows import kmer_window_codes
 
-# 4^10 presence bins per segment; beyond this the JAX package takes the
-# sparse path, which is not ported yet
 DENSE_MAX_K = 10
 
 
@@ -28,14 +29,12 @@ def contigs_from_read_codes(
 ) -> list[str]:
     """Canonical contig set from reads. Raises if a walk overflows
     max_contig_len."""
-    if dbg_kmer > DENSE_MAX_K:
-        raise NotImplementedError(
-            f"dbg_kmer {dbg_kmer} > {DENSE_MAX_K} needs the sparse dBG path, "
-            "not ported yet (ROADMAP.md Queue 1, item 1: sparse and big-k dBG)")
+    if dbg_kmer > MAX_K:
+        raise ValueError(f"dbg_kmer > {MAX_K} is not supported (62-bit code limit)")
     kcodes, kvalid = kmer_window_codes(read_codes, dbg_kmer, dtype=torch.int64)
     kvalid = kvalid & read_valid[:, None]
-    buf, lens, wvalid, overflow, _, _ = contigs_dense(
-        kcodes, kvalid, dbg_kmer, max_contig_len)
+    build = contigs_dense if dbg_kmer <= DENSE_MAX_K else contigs_sparse
+    buf, lens, wvalid, overflow, _, _ = build(kcodes, kvalid, dbg_kmer, max_contig_len)
     return dedup_contigs(buf.cpu().numpy(), lens.cpu().numpy(),
                          wvalid.cpu().numpy(), overflow.cpu().numpy())
 

@@ -1,9 +1,9 @@
 """De Bruijn graph for small k (mirrors genomeassembler_dev_tpu/dbg/dense.py).
 
 The JAX module shapes every gather and scatter as a one-hot matmul for the
-TPU's matrix unit. Here the same outputs come from sort/unique, searchsorted
-and plain scatters, and the walk is the pointer-doubling walk of
-dbg/doubling.py.
+TPU's matrix unit. Here `build_dbg_dense` gives the same direct-indexed
+tables by bincount and reshapes, and `contigs_dense` is the sorted-unique
+builder of dbg/graph.py with the pointer-doubling walk of dbg/doubling.py.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from dataclasses import dataclass
 
 import torch
 
-from genomeassembler_dev_tpu_torch.dbg.doubling import walk_contigs_doubling
+from genomeassembler_dev_tpu_torch.dbg.graph import contigs_sparse
 
 
 @dataclass
@@ -51,40 +51,8 @@ def build_dbg_dense(kmer_codes: torch.Tensor, kmer_valid: torch.Tensor,
 
 def contigs_dense(kmer_codes: torch.Tensor, kmer_valid: torch.Tensor, k: int,
                   max_len: int):
-    """Build the graph over the active nodes and walk every contig.
-
-    Returns (buf [n_walks, max_len] uint8, lens [n_walks], walk_valid,
-    overflow, n_walks, n_nodes), the last two as ints. Walks are the edges
-    out of branch nodes, in ascending edge code order. Eager PyTorch sizes
-    every array exactly, so there is no capacity to retry.
-    """
-    V = 4 ** (k - 1)
-    edges = torch.unique(kmer_codes.reshape(-1)[kmer_valid.reshape(-1)].long())
-    prefix = edges >> 2
-    suffix = edges & (V - 1)
-    nodes = torch.unique(torch.cat([prefix, suffix]))  # sorted
-    n = nodes.shape[0]
-    p_idx = torch.searchsorted(nodes, prefix)
-    s_idx = torch.searchsorted(nodes, suffix)
-    out_deg = torch.bincount(p_idx, minlength=n)
-    in_deg = torch.bincount(s_idx, minlength=n)
-    branch = ((in_deg != 1) | (out_deg != 1)) & (out_deg > 0)
-
-    # a node of out-degree 1 has exactly one edge writing its successor,
-    # a node of in-degree 1 exactly one writing its predecessor
-    succ = torch.full((n,), -1, dtype=torch.int64, device=nodes.device)
-    single_out = out_deg[p_idx] == 1
-    succ[p_idx[single_out]] = s_idx[single_out]
-    pred = torch.full((n,), -1, dtype=torch.int64, device=nodes.device)
-    single_in = in_deg[s_idx] == 1
-    pred[s_idx[single_in]] = p_idx[single_in]
-
-    is_walk = branch[p_idx]
-    walk_start = s_idx[is_walk]
-    walk_prefix = prefix[is_walk]
-    walk_valid = torch.ones_like(walk_start, dtype=torch.bool)
-    buf, lens, overflow = walk_contigs_doubling(
-        (nodes & 3).to(torch.uint8), succ, pred, branch, out_deg,
-        walk_start, walk_prefix, walk_valid, k, max_len,
-    )
-    return buf, lens, walk_valid, overflow, walk_start.shape[0], n
+    """Build the graph over the active nodes and walk every contig; the
+    outputs of dbg/graph.py::contigs_sparse. The JAX module's direct-indexed
+    4^k tables serve the TPU's matrix unit; on the GPU the sorted-unique
+    graph is the same work at k <= 10, so the dense path builds that one."""
+    return contigs_sparse(kmer_codes, kmer_valid, k, max_len)

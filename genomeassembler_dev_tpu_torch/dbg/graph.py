@@ -1,0 +1,99 @@
+"""De Bruijn graph over integer k-mer codes (mirrors
+genomeassembler_dev_tpu/dbg/graph.py), for every k up to 31.
+
+The edge set is the set of unique k-mer codes; nodes are the unique
+(k-1)-mer prefixes and suffixes; degrees come from scatter-adds over node
+indices; a node branches when (in != 1 or out != 1) and out > 0. One int64
+code holds k <= 31, so this one builder covers both of the JAX package's
+sparse paths: `contigs_sparse` (int32 codes, k <= 15) and
+`dbg/big_k.py::contigs_big_k` (hi/lo code pairs, k 16-31).
+
+The JAX module keeps fixed-capacity arrays padded with SENTINEL = 2^31-1 so
+that its compiled shapes stay few. Eager PyTorch sizes every array exactly:
+invalid codes are dropped by masking before the sort, so no sentinel has to
+sort above the codes.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from genomeassembler_dev_tpu_torch.dbg.doubling import walk_contigs_doubling
+
+MAX_K = 31  # 2k bits in one int64 code
+
+
+@dataclass
+class DBG:
+    k: int
+    edges: torch.Tensor  # [E] sorted unique k-mer codes, int64
+    nodes: torch.Tensor  # [V] sorted unique (k-1)-mer codes, int64
+    edge_from: torch.Tensor  # [E] node index of each edge's prefix
+    edge_to: torch.Tensor  # [E] node index of each edge's suffix
+    in_deg: torch.Tensor  # [V] int64
+    out_deg: torch.Tensor  # [V] int64
+    branch: torch.Tensor  # [V] bool
+    succ: torch.Tensor  # [V] node index of the unique successor, -1 otherwise
+    pred: torch.Tensor  # [V] node index of the unique predecessor, -1 otherwise
+
+    @property
+    def n_edges(self) -> int:
+        return self.edges.shape[0]
+
+    @property
+    def n_nodes(self) -> int:
+        return self.nodes.shape[0]
+
+
+def build_dbg(kmer_codes: torch.Tensor, kmer_valid: torch.Tensor, k: int) -> DBG:
+    """The graph of the valid codes among (possibly repeated) kmer_codes."""
+    if not 2 <= k <= MAX_K:
+        raise ValueError(f"k must be in 2..{MAX_K} (got {k})")
+    edges = torch.unique(kmer_codes.reshape(-1)[kmer_valid.reshape(-1)].long())
+    prefix = edges >> 2
+    suffix = edges & ((1 << (2 * (k - 1))) - 1)
+    nodes = torch.unique(torch.cat([prefix, suffix]))  # sorted
+    n = nodes.shape[0]
+    p_idx = torch.searchsorted(nodes, prefix)
+    s_idx = torch.searchsorted(nodes, suffix)
+    out_deg = torch.bincount(p_idx, minlength=n)
+    in_deg = torch.bincount(s_idx, minlength=n)
+    branch = ((in_deg != 1) | (out_deg != 1)) & (out_deg > 0)
+
+    # a node of out-degree 1 has exactly one edge writing its successor,
+    # a node of in-degree 1 exactly one writing its predecessor
+    succ = torch.full((n,), -1, dtype=torch.int64, device=nodes.device)
+    single_out = out_deg[p_idx] == 1
+    succ[p_idx[single_out]] = s_idx[single_out]
+    pred = torch.full((n,), -1, dtype=torch.int64, device=nodes.device)
+    single_in = in_deg[s_idx] == 1
+    pred[s_idx[single_in]] = p_idx[single_in]
+    return DBG(k=k, edges=edges, nodes=nodes, edge_from=p_idx, edge_to=s_idx,
+               in_deg=in_deg, out_deg=out_deg, branch=branch, succ=succ, pred=pred)
+
+
+def walk_starts_sparse(g: DBG):
+    """Edges whose prefix node branches, in ascending edge code order.
+    Returns (start node index, prefix code, valid, n_walks)."""
+    is_walk = g.branch[g.edge_from]
+    start = g.edge_to[is_walk]
+    return (start, g.edges[is_walk] >> 2, torch.ones_like(start, dtype=torch.bool),
+            start.shape[0])
+
+
+def contigs_sparse(kmer_codes: torch.Tensor, kmer_valid: torch.Tensor, k: int,
+                   max_len: int):
+    """Build the graph and walk every contig by pointer doubling.
+
+    Returns (buf [n_walks, max_len] uint8, lens [n_walks], walk_valid,
+    overflow, n_walks, n_nodes), the last two as ints. Every array is sized
+    exactly, so there is no capacity to retry."""
+    g = build_dbg(kmer_codes, kmer_valid, k)
+    start, prefix, valid, n_walks = walk_starts_sparse(g)
+    buf, lens, overflow = walk_contigs_doubling(
+        (g.nodes & 3).to(torch.uint8), g.succ, g.pred, g.branch, g.out_deg,
+        start, prefix, valid, k, max_len,
+    )
+    return buf, lens, valid, overflow, n_walks, g.n_nodes

@@ -51,6 +51,11 @@ def _load() -> ctypes.CDLL:
             ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
             ctypes.POINTER(ctypes.c_long),
         ]
+        lib.gadev_count_kmers.restype = ctypes.c_long
+        lib.gadev_count_kmers.argtypes = [
+            ctypes.c_char_p, ctypes.c_long, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_long),
+        ]
         lib.gadev_result_count.restype = ctypes.c_int
         lib.gadev_result_count.argtypes = [ctypes.c_void_p]
         lib.gadev_result_get.restype = ctypes.POINTER(ctypes.c_char)
@@ -123,3 +128,20 @@ def breakscore_native(paths: list[str], reads: list[str],
         breaks.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
     )
     return scores, breaks
+
+
+def count_kmers_native(reads: list[str], k: int) -> np.ndarray:
+    """Single-threaded rolling k-mer count over raw reads: counts [4^k]
+    int64. Windows holding a non-ACGT character are skipped."""
+    lib = _load()
+    counts = np.zeros(4**k, dtype=np.int64)
+    if not reads:
+        return counts
+    read_len = len(reads[0])
+    if any(len(r) != read_len for r in reads):
+        raise ValueError("reads must all have one length")
+    lib.gadev_count_kmers(
+        "".join(reads).encode(), len(reads), read_len, k,
+        counts.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
+    )
+    return counts

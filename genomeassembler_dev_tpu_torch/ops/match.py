@@ -1,12 +1,16 @@
 """Exact read-in-solution matching (mirrors genomeassembler_dev_tpu/ops/match.py).
 
 The first occurrence of every distinct read in every solution, as
-`std::string::find` gives it. A read of up to 31 bases is one int64 code, so
-each solution's window codes are sorted once (stably, so equal codes keep
-ascending positions) and every read is found by a batched binary search:
-O((P + R) log P) per solution. This is the semantics of both JAX functions,
-the compare grid `find_first_match` and the sort-merge join
+`std::string::find` gives it. Each window of a solution gets one int64 key,
+the windows of each solution are sorted once (stably, so equal keys keep
+ascending positions) and every read's key is found by a batched binary
+search: O((P + R) log P) per solution. This is the semantics of both JAX
+functions, the compare grid `find_first_match` and the sort-merge join
 `find_first_match_sorted`.
+
+A read of up to 31 bases is its own key. A longer read is cut into words of
+up to 31 bases, and the windows' and reads' word tuples are ranked jointly
+(torch.unique over rows): equal tuples share a rank, and the rank is the key.
 """
 
 from __future__ import annotations
@@ -15,8 +19,29 @@ import torch
 
 from genomeassembler_dev_tpu_torch.ops.windows import kmer_window_codes
 
-MAX_READ_LEN = 31  # bases in one int64 code
-_NO_WINDOW = 1 << 62  # above every 31-base code (< 4^31 = 2^62)
+WORD_BASES = 31  # bases in one int64 code
+_NO_WINDOW = 1 << 62  # above every key: 31-base codes are < 4^31 = 2^62
+
+
+def _word_keys(path_codes: torch.Tensor, read_codes: torch.Tensor):
+    """Window keys [S, P] and read keys [R] of reads longer than one word;
+    invalid windows (holding pad bases) get garbage keys, masked by the
+    caller, and their validity comes back as the third output."""
+    S, L = path_codes.shape
+    Lr = read_codes.shape[1]
+    P = L - Lr + 1
+    win_words, read_words = [], []
+    wvalid = torch.ones((S, P), dtype=torch.bool, device=path_codes.device)
+    for start in range(0, Lr, WORD_BASES):
+        n = min(WORD_BASES, Lr - start)
+        codes, valid = kmer_window_codes(path_codes, n, dtype=torch.int64)
+        win_words.append(codes[:, start : start + P].reshape(-1))
+        wvalid &= valid[:, start : start + P]
+        read_words.append(kmer_window_codes(read_codes[:, start : start + n], n,
+                                            dtype=torch.int64)[0][:, 0])
+    rows = torch.cat([torch.stack(win_words, 1), torch.stack(read_words, 1)])
+    rank = torch.unique(rows, dim=0, return_inverse=True)[1]
+    return rank[: S * P].view(S, P), rank[S * P :], wvalid
 
 
 def find_first_match(
@@ -30,18 +55,17 @@ def find_first_match(
     agree; windows holding pad bases never match."""
     S, L = path_codes.shape
     R, Lr = read_codes.shape
-    if Lr > MAX_READ_LEN:
-        raise NotImplementedError(
-            f"reads of {Lr} bases need the multi-word matcher, not ported yet "
-            f"(one int64 code holds {MAX_READ_LEN})")
     P = L - Lr + 1
-    win, wvalid = kmer_window_codes(path_codes, Lr, dtype=torch.int64)  # [S, P]
+    if Lr <= WORD_BASES:
+        win, wvalid = kmer_window_codes(path_codes, Lr, dtype=torch.int64)  # [S, P]
+        rcode = kmer_window_codes(read_codes, Lr, dtype=torch.int64)[0][:, 0]  # [R]
+    else:
+        win, rcode, wvalid = _word_keys(path_codes, read_codes)
     pos = torch.arange(P, device=path_codes.device)
     in_range = pos[None, :] + Lr <= path_lens[:, None]
     keys = torch.where(wvalid & in_range, win, _NO_WINDOW)
     skeys, perm = torch.sort(keys, dim=1, stable=True)
 
-    rcode = kmer_window_codes(read_codes, Lr, dtype=torch.int64)[0][:, 0]  # [R]
     q = rcode[None, :].expand(S, R).contiguous()
     idx = torch.searchsorted(skeys, q)  # first window with key >= read
     idx_c = idx.clamp(max=P - 1)

@@ -5,8 +5,9 @@ solution against the true and the uniform probability tables -> one results
 table. The break-count matrix does not depend on the table, so it is built
 once and both score families are dot products against it.
 
-Ported: the standard traversal on the dense dBG path (dbg_kmer <= 10) with
-the native merge. Everything runs on the Assembler's explicit `device`.
+Ported: the standard traversal for every dbg_kmer up to 31 with the native
+merge, and the k-mer-count path (only_kmers_from_reads). Everything runs on
+the Assembler's explicit `device`.
 """
 
 from __future__ import annotations
@@ -22,7 +23,9 @@ from genomeassembler_dev_tpu_torch.core.querytable import (
 from genomeassembler_dev_tpu_torch.dbg.assemble import contigs_from_read_codes
 from genomeassembler_dev_tpu_torch.merge.engine import assemble_solutions
 from genomeassembler_dev_tpu_torch.ops.edit_distance import batched_levenshtein_auto
+from genomeassembler_dev_tpu_torch.ops.histogram import count_kmers
 from genomeassembler_dev_tpu_torch.ops.ks import batched_ks_2samp
+from genomeassembler_dev_tpu_torch.ops.windows import kmer_window_codes
 from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
 from genomeassembler_dev_tpu_torch.score.breakscore import breakscore, dot_f32
 from genomeassembler_dev_tpu_torch.sim.reads import (
@@ -103,9 +106,6 @@ class Assembler:
         if self.config.traversal != "standard":
             raise NotImplementedError(
                 "the biased traversal is not ported yet (ROADMAP.md Queue 1, item 5)")
-        if self.config.only_kmers_from_reads:
-            raise NotImplementedError(
-                "the k-mer-count path is not ported yet (ROADMAP.md Queue 1, item 3)")
         self.device = torch.device(device)
         self.table = table if table is not None else load_default_query_table(self.device)
         self.uniform = QueryTable.uniform(self.device)
@@ -205,6 +205,16 @@ class Assembler:
                 "stat_test_KS_random": host["ks"][order],
             }
 
+    def count_only(self, rs: ReadSet, timer: StageTimer) -> dict[str, np.ndarray]:
+        """The only_kmers_from_reads path: the histogram of the reads'
+        breakage k-mers beside the probability table, in k-mer code order."""
+        k = self.config.kmer
+        with timer.stage("Extracting k-mers from sequencing reads"):
+            codes, valid = kmer_window_codes(rs.codes, k)
+            counts = count_kmers(codes, valid & rs.valid[:, None], 4**k)
+            return {"prob": self.table.probs[k].cpu().numpy(),
+                    "count": counts.cpu().numpy()}
+
     # -- full experiment ----------------------------------------------------
 
     def run_experiment(self, segment: str, read_set: tuple | None = None) -> ExperimentResult:
@@ -228,6 +238,10 @@ class Assembler:
             "nr_of_reads": n_reads,
             "genome_seq": segment,
         }
+        if cfg.only_kmers_from_reads:
+            cols = self.count_only(rs, timer)
+            return ExperimentResult(columns=cols, stats=stats, timings=timer.times)
+
         contigs = self.contigs(rs.codes, rs.valid, timer)
         solutions = self.merge(contigs, timer)
         cols = self.score(solutions, rs, genome_codes, timer)

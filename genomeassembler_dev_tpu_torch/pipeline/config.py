@@ -76,3 +76,15 @@ class ExperimentConfig:
         if self.n_orderings < 1:
             raise ValueError("n_orderings must be >= 1")
         return self
+
+    def param_string(self) -> str:
+        """The reference's artifact parameter string
+        (lib/DeNovoAssembler.R:280-308)."""
+        return (
+            f"_SeqLen-{self.seq_len}"
+            f"_SeqSeed-{self.seed}"
+            f"_ReadLen-{self.read_len}"
+            f"_DBGKmer-{self.dbg_kmer}"
+            f"_kmer-{self.kmer}"
+            f"_IndustryModel-{self.industry_standard}"
+        )

@@ -1,0 +1,355 @@
+"""Study runners: the reference's experiment scripts as library functions.
+
+  * run_own_study      — scripts/02_Real_vs_rand_prob_own.R: the grid of
+                         (read_len, dbg_kmer) x total_iters own-dBG
+                         experiments, with per-experiment CSV artifacts and
+                         summary aggregation (results_summary/results_all).
+  * run_kmer_count_study — scripts/01_Real_vs_rand_prob_break_vs_kmers.R:
+                         count-only runs for k in {2,4,6,8} and the R^2 of
+                         count vs probability.
+  * run_gc_study       — scripts/03_GC_content_dependency.R: GC content of
+                         each segment vs its mean scores from the saved
+                         SolutionsTables.
+
+Plot generation is replaced by the CSV outputs the plots were drawn from
+(SURVEY.md §7.4); any plotting stack can consume them.
+
+Mirrors genomeassembler_dev_tpu/pipeline/experiments.py on an explicit
+device. Not ported yet: the batched runner (`batched=True`), the
+per-experiment plots (`plots=True`) and the velvet study; each raises.
+"""
+
+from __future__ import annotations
+
+import csv
+import os
+import shutil
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from genomeassembler_dev_tpu_torch.core.encoding import encode_dna
+from genomeassembler_dev_tpu_torch.core.querytable import QueryTable, load_default_query_table
+from genomeassembler_dev_tpu_torch.pipeline import results as res_io
+from genomeassembler_dev_tpu_torch.pipeline.assembler import Assembler
+from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
+from genomeassembler_dev_tpu_torch.sim.reads_io import save_read_fastas
+from genomeassembler_dev_tpu_torch.sim.segments import SegmentStore
+from genomeassembler_dev_tpu_torch.utils.timers import StageTimer
+
+
+def _write_csv(path: str, names: list[str], rows: list[list]) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(names)
+        w.writerows(rows)
+
+
+@dataclass
+class StudyReport:
+    summary_path: str
+    all_path: str
+    n_experiments: int
+    n_skipped: int
+
+
+def refuse_unported(batched: bool = False, plots: bool = False) -> None:
+    """Raise for the options whose paths are not ported yet."""
+    if batched:
+        raise NotImplementedError(
+            "the batched runner is not ported yet (ROADMAP.md Queue 1, item 2)")
+    if plots:
+        raise NotImplementedError(
+            "per-experiment plots are not ported: the port carries no "
+            "matplotlib (ROADMAP.md Queue 1, item 3)")
+
+
+def run_own_study(
+    workdir: str,
+    segments: SegmentStore,
+    device,
+    base: ExperimentConfig | None = None,
+    grid: tuple[tuple[int, int], ...] | None = None,
+    total_iters: int | None = None,
+    table: QueryTable | None = None,
+    verbose: bool = False,
+    batched: bool = False,
+    plots: bool = False,
+) -> StudyReport:
+    """The own-dBG study (scripts/02_…:21-53 + aggregation :59-214) on
+    `device`.
+
+    Segments index experiments: experiment i uses segments[i-1] (1-based ind,
+    as the reference's exp_<i> layout). Existing artifacts are skipped —
+    the reference's file-per-experiment resume contract.
+    """
+    refuse_unported(batched, plots)
+    base = base or ExperimentConfig(
+        seq_len=1000, coverage_target=40.0, kmer=8, seed=1234
+    )
+    grid = grid or ExperimentConfig.OWN_STUDY_GRID
+    total_iters = total_iters or len(segments)
+    table = table if table is not None else load_default_query_table(device)
+
+    n_run = n_skip = 0
+    for read_len, dbg_kmer in grid:
+        cfg = base.with_(read_len=read_len, dbg_kmer=dbg_kmer)
+        pending = [i for i in range(1, total_iters + 1)
+                   if not res_io.experiment_done(workdir, i, cfg)]
+        n_skip += total_iters - len(pending)
+        asm = Assembler(cfg, device, table, verbose=verbose)
+        for i in pending:
+            res = asm.run_experiment(segments.seqs[i - 1])
+            res_io.save_result(workdir, i, cfg, res)
+            if cfg.save_read_files:
+                _save_reads(workdir, i, asm, segments)
+            n_run += 1
+
+    if base.save_read_files:
+        # the reference deletes data/reads/exp_* after the final iteration
+        # (lib/DeNovoAssembler.R:76-83); artifacts in results/ remain
+        reads_root = os.path.join(workdir, "reads")
+        if os.path.isdir(reads_root):
+            shutil.rmtree(reads_root, ignore_errors=True)
+
+    # aggregation (scripts/02_…:59-214): per experiment, mean of the
+    # length-normalised scores, true vs random
+    summary_rows = []
+    all_rows = []
+    for read_len, dbg_kmer in grid:
+        cfg = base.with_(read_len=read_len, dbg_kmer=dbg_kmer)
+        for i in range(1, total_iters + 1):
+            path = res_io.solutions_path(workdir, i, cfg)
+            if not os.path.exists(path):
+                continue
+            cols = res_io.load_result_columns(path)
+            for key in ("bp_score_norm_by_len_true", "bp_score_norm_by_len_random"):
+                mean = float(np.nanmean(cols[key])) if len(cols[key]) else float("nan")
+                summary_rows.append([
+                    read_len, dbg_kmer, "bp_score_norm_by_len", mean,
+                    key.endswith("_random"),
+                ])
+            for r in range(len(cols["sequence"])):
+                all_rows.append([
+                    read_len, dbg_kmer, i,
+                    cols["sequence_len"][r], cols["kmer_breaks"][r],
+                    cols["bp_score_norm_by_break_freqs_true"][r],
+                    cols["bp_score_norm_by_len_true"][r],
+                    cols["bp_score_true"][r], cols["bp_score_random"][r],
+                    cols["lev_dist_vs_true"][r], cols["stat_test_KS_true"][r],
+                ])
+
+    out_dir = os.path.join(workdir, f"IndustryModel_{base.industry_standard}")
+    summary_path = os.path.join(out_dir, "results_summary.csv")
+    _write_csv(summary_path,
+               ["read_len", "dbg_kmer", "Key", "Value", "random_prob"],
+               summary_rows)
+    # the reference's results_all column selection (scripts/02_…:174-210)
+    # plus experiment index and the random-score column our stats use
+    all_path = os.path.join(out_dir, "results_all.csv")
+    _write_csv(all_path,
+               ["read_len", "dbg_kmer", "experiment", "sequence_len",
+                "kmer_breaks", "bp_score_norm_by_break_freqs_true",
+                "bp_score_norm_by_len_true", "bp_score_true",
+                "bp_score_random", "lev_dist_vs_true", "stat_test_KS_true"],
+               all_rows)
+    return StudyReport(summary_path, all_path, n_run, n_skip)
+
+
+def _save_reads(workdir: str, ind: int, asm: Assembler, segments: SegmentStore):
+    """The reference's per-experiment read FASTA artifacts
+    (lib/GenerateReads.R:419-479): the experiment's reads, re-simulated from
+    its seed."""
+    seg = segments.seqs[ind - 1]
+    rs = asm.simulate(torch.from_numpy(encode_dna(seg)).to(asm.device),
+                      StageTimer(asm.device, verbose=False))
+    save_read_fastas(
+        workdir, ind, asm.config, rs.codes.cpu().numpy(), rs.valid.cpu().numpy(),
+        rs.positions.cpu().numpy(), seg, segments.names[ind - 1],
+    )
+
+
+def top_fraction_contrast(values: np.ndarray, frac: float = 0.05,
+                          companions: dict[str, np.ndarray] | None = None) -> dict:
+    """The reference's headline top-5%-vs-rest contrast
+    (scripts/02_Real_vs_rand_prob_own.R:221-260 slice_max(prop=0.05) vs
+    slice_min(prop=0.95), significance via t.test — Welch by R default;
+    velvet variant scripts/00_…:221-260).
+
+    Ranks `values` descending; the top floor(frac*n) rows are "Top 5%", the
+    bottom floor((1-frac)*n) are "Remaining" (the reference's slice_min —
+    NOT the complement, so a sliver in the middle can belong to both/neither
+    exactly as in R). Returns mean/median of both groups plus the Welch
+    t-statistic/p-value, and the same group summaries for each companion
+    column (e.g. Levenshtein distance) split by the SAME ranking."""
+    import scipy.stats as st
+
+    v = np.asarray(values, float)
+    ok = ~np.isnan(v)
+    v = v[ok]
+    n = v.size
+    n_top = int(np.floor(frac * n))
+    n_rest = int(np.floor((1.0 - frac) * n))
+    order = np.argsort(-v, kind="stable")
+    top_idx, rest_idx = order[:n_top], order[::-1][:n_rest]
+    out: dict = {"n": n, "n_top": n_top, "n_rest": n_rest}
+    if n_top < 2 or n_rest < 2:
+        return out | {"t_stat": float("nan"), "t_p": float("nan")}
+    top, rest = v[top_idx], v[rest_idx]
+    t_stat, t_p = st.ttest_ind(top, rest, equal_var=False)
+    out |= {
+        "top_mean": float(top.mean()), "top_median": float(np.median(top)),
+        "rest_mean": float(rest.mean()), "rest_median": float(np.median(rest)),
+        "t_stat": float(t_stat), "t_p": float(t_p),
+    }
+    for name, comp in (companions or {}).items():
+        c = np.asarray(comp, float)[ok]
+        ct, cr = c[top_idx], c[rest_idx]
+        out[name] = {
+            "top_mean": float(np.nanmean(ct)),
+            "top_median": float(np.nanmedian(ct)),
+            "rest_mean": float(np.nanmean(cr)),
+            "rest_median": float(np.nanmedian(cr)),
+        }
+    return out
+
+
+def study_statistics(all_csv_path: str, top_frac: float = 0.05) -> dict:
+    """The study's significance tests: per grid row, a one-way ANOVA of
+    bp_score across binned Levenshtein distance and the Spearman correlation
+    of bp_score vs Levenshtein distance (scripts/02_…:548-588), plus the
+    top-5%-vs-rest contrast of the reference's figure family
+    (scripts/02_…:221-260; velvet variant 00_…:221-260) on each score
+    column present, with Levenshtein summaries of the same split and the
+    random-probability score contrasted under its own ranking."""
+    import gzip
+
+    import scipy.stats as st
+
+    # accept a gzip-compressed results_all.csv.gz (large studies commit only
+    # the .gz); a plain path whose .gz sibling is the committed artifact also
+    # resolves
+    if not os.path.exists(all_csv_path) and os.path.exists(all_csv_path + ".gz"):
+        all_csv_path = all_csv_path + ".gz"
+    opener = gzip.open if all_csv_path.endswith(".gz") else open
+    with opener(all_csv_path, "rt", newline="") as f:
+        rows = list(csv.DictReader(f))
+    by_grid: dict[tuple[int, int], list[dict]] = {}
+    for r in rows:
+        key = (int(float(r["read_len"])), int(float(r["dbg_kmer"])))
+        by_grid.setdefault(key, []).append(r)
+    score_cols = ("bp_score_norm_by_len_true", "bp_score_true",
+                  "bp_score_norm_by_break_freqs_true", "bp_score_random")
+
+    def col(rows_, name):
+        if name not in rows_[0]:
+            return None
+        return np.array([float(r[name]) if r[name] != "" else np.nan
+                         for r in rows_], float)
+
+    out = {}
+    for key, vals in by_grid.items():
+        bp = col(vals, "bp_score_true")
+        lev = col(vals, "lev_dist_vs_true")
+        # degenerate rows (constant score or Levenshtein column) have no
+        # defined rank correlation — report nan rather than let spearmanr
+        # emit ConstantInputWarning (same guard shape as the ANOVA branch)
+        if np.unique(bp[~np.isnan(bp)]).size < 2 or \
+                np.unique(lev[~np.isnan(lev)]).size < 2:
+            rho, rho_p = float("nan"), float("nan")
+        else:
+            rho, rho_p = st.spearmanr(bp, lev)
+        # bin lev into up to 6 groups (the reference's default bins)
+        edges = np.linspace(lev.min(), lev.max() + 1e-9, 7)
+        groups = [bp[(lev >= lo) & (lev < hi)] for lo, hi in zip(edges[:-1], edges[1:])]
+        groups = [g for g in groups if g.size > 1]
+        if len(groups) >= 2:
+            f_stat, f_p = st.f_oneway(*groups)
+        else:
+            f_stat, f_p = float("nan"), float("nan")
+        entry = {
+            "spearman_rho": float(rho), "spearman_p": float(rho_p),
+            "anova_F": float(f_stat), "anova_p": float(f_p),
+            "n": int(bp.size),
+        }
+        top5 = {}
+        for sc in score_cols:
+            v = col(vals, sc)
+            if v is None or np.isnan(v).all():
+                continue
+            top5[sc] = top_fraction_contrast(
+                v, top_frac, companions={"lev_dist_vs_true": lev})
+        entry["top_fraction"] = top5
+        out[f"{key[0]}:{key[1]}"] = entry
+    return out
+
+
+def count_prob_r_squared(prob: np.ndarray, count: np.ndarray) -> float:
+    """R^2 of the least-squares fit count ~ prob (float64 inputs)."""
+    A = np.stack([prob, np.ones_like(prob)], axis=1)
+    coef, *_ = np.linalg.lstsq(A, count, rcond=None)
+    pred = A @ coef
+    ss_res = float(((count - pred) ** 2).sum())
+    ss_tot = float(((count - count.mean()) ** 2).sum())
+    return 1.0 - ss_res / ss_tot if ss_tot else float("nan")
+
+
+def run_kmer_count_study(
+    workdir: str,
+    segment: str,
+    device,
+    base: ExperimentConfig | None = None,
+    ks: tuple[int, ...] = (2, 4, 6, 8),
+    table: QueryTable | None = None,
+) -> dict[int, float]:
+    """Script 01: for each k, count read k-mers on `device` and regress
+    count on probability; returns {k: R^2} and writes kmer_count_vs_prob.csv.
+    Demonstrates that breakage probability is not explained by k-mer
+    frequency (scripts/01_…:48-56)."""
+    base = base or ExperimentConfig(seq_len=1000, read_len=20, coverage_target=40.0,
+                                    seed=1234)
+    table = table if table is not None else load_default_query_table(device)
+    rows, r2 = [], {}
+    for k in ks:
+        cfg = base.with_(only_kmers_from_reads=True, kmer=k)
+        res = Assembler(cfg, device, table).run_experiment(segment)
+        prob = res.columns["prob"]
+        count = res.columns["count"].astype(np.float64)
+        r2[k] = count_prob_r_squared(prob, count)
+        for code in range(len(prob)):
+            rows.append([k, code, prob[code], int(count[code])])
+    _write_csv(os.path.join(workdir, "kmer_count_vs_prob.csv"),
+               ["k", "code", "prob", "count"], rows)
+    return r2
+
+
+def run_gc_study(
+    workdir: str,
+    segments: SegmentStore,
+    cfg: ExperimentConfig,
+    total_iters: int,
+) -> str:
+    """Script 03: GC fraction of each experiment's segment vs its mean scores
+    from the saved SolutionsTables; writes gc_dependency.csv."""
+    rows = []
+    for i in range(1, total_iters + 1):
+        path = res_io.solutions_path(workdir, i, cfg)
+        if not os.path.exists(path):
+            continue
+        seq = segments.seqs[i - 1]
+        gc = (seq.count("G") + seq.count("C")) / len(seq)
+        cols = res_io.load_result_columns(path)
+        rows.append([
+            i, gc,
+            float(np.nanmean(cols["bp_score_true"])),
+            float(np.nanmean(cols["bp_score_norm_by_len_true"])),
+            float(np.nanmean(cols["bp_score_norm_by_break_freqs_true"])),
+            float(np.nanmean(cols["lev_dist_vs_true"])),
+        ])
+    out = os.path.join(workdir, "gc_dependency.csv")
+    _write_csv(out, ["experiment", "gc_fraction", "mean_bp_score",
+                     "mean_bp_score_norm_by_len",
+                     "mean_bp_score_norm_by_break_freqs", "mean_lev_dist"], rows)
+    return out

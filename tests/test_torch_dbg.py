@@ -1,6 +1,7 @@
-"""PyTorch port vs the JAX package: the dense dBG, the pointer-doubling walk
-and the canonical contig set, on read sets simulated by the JAX package.
-Every output here is an integer, so the comparison is exact."""
+"""PyTorch port vs the JAX package: the dense and sparse dBG, the
+pointer-doubling walk and the canonical contig set, on read sets simulated by
+the JAX package. Every output here is an integer, so the comparison is
+exact."""
 
 import numpy as np
 import pytest
@@ -22,6 +23,7 @@ from genomeassembler_dev_tpu.sim.reads import generate_reads  # noqa: E402
 from genomeassembler_dev_tpu.sim.segments import synthetic_genome  # noqa: E402
 from genomeassembler_dev_tpu_torch.dbg import assemble as tasm  # noqa: E402
 from genomeassembler_dev_tpu_torch.dbg import dense as tdense  # noqa: E402
+from genomeassembler_dev_tpu_torch.dbg import graph as tgraph  # noqa: E402
 from genomeassembler_dev_tpu_torch.dbg.doubling import walk_contigs_doubling as t_walk  # noqa: E402
 
 # (k, read_len, seq_len, coverage, segment seed): k 5 gives many branches
@@ -126,7 +128,40 @@ def test_overflow_raises(table):
                                      9, 15)
 
 
-def test_sparse_k_not_ported():
-    codes = torch.zeros((2, 16), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tasm.contigs_from_read_codes(codes, torch.ones(2, dtype=torch.bool), 13, 100)
+# (k, read_len): k 11-15 take JAX's contigs_sparse, k 17-31 its contigs_big_k
+SPARSE = [(11, 14), (13, 16), (15, 20), (17, 22), (21, 26), (31, 36)]
+
+
+@pytest.mark.parametrize("k,read_len", SPARSE)
+def test_sparse_contigs_vs_jax(table, k, read_len):
+    codes, valid = jax_reads(table, read_len, 300, 15.0, 5)
+    want = jasm.contigs_from_read_codes(codes, valid, k, 600)
+    got = tasm.contigs_from_read_codes(tt(codes), tt(valid), k, 600)
+    assert got == want
+    assert len(got) > 1
+
+
+def test_build_dbg_sparse_vs_jax(table):
+    """The graph arrays at k 13: JAX pads them to capacity, the port sizes
+    them exactly."""
+    codes, valid = jax_reads(table, 16, 300, 15.0, 5)
+    kc, kv = windows(codes, valid, 13)
+    j = build_dbg(jnp.asarray(kc.reshape(-1)), jnp.asarray(kv.reshape(-1)), 13)
+    t = tgraph.build_dbg(tt(kc), tt(kv), 13)
+    assert (t.n_edges, t.n_nodes) == (int(j.n_edges), int(j.n_nodes))
+    np.testing.assert_array_equal(t.edges.numpy(), np.asarray(j.edges)[: t.n_edges])
+    for name in ("nodes", "in_deg", "out_deg", "branch", "succ", "pred"):
+        np.testing.assert_array_equal(getattr(t, name).numpy(),
+                                      np.asarray(getattr(j, name))[: t.n_nodes],
+                                      err_msg=name)
+    jstart, jprefix, jvalid, jn = walk_starts_sparse(j, 1024)
+    tstart, tprefix, tvalid, tn = tgraph.walk_starts_sparse(t)
+    assert tn == int(jn) > 1
+    np.testing.assert_array_equal(tstart.numpy(), np.asarray(jstart)[:tn])
+    np.testing.assert_array_equal(tprefix.numpy(), np.asarray(jprefix)[:tn])
+
+
+def test_k_beyond_31_raises():
+    codes = torch.zeros((2, 40), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="31"):
+        tasm.contigs_from_read_codes(codes, torch.ones(2, dtype=torch.bool), 32, 100)

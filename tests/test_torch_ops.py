@@ -1,5 +1,5 @@
-"""PyTorch port vs the JAX package: windows, matcher, breakscore, KS and
-Levenshtein, on identical numpy-made inputs. Integer outputs must agree
+"""PyTorch port vs the JAX package: windows, matcher, breakscore, KS,
+k-mer histograms and Levenshtein, on identical numpy-made inputs. Integer outputs must agree
 exactly; float outputs within rtol 2e-5 (the JAX float32 tolerance)."""
 
 import numpy as np
@@ -12,21 +12,30 @@ import jax.numpy as jnp  # noqa: E402
 
 from genomeassembler_dev_tpu.core.encoding import encode_dna  # noqa: E402
 from genomeassembler_dev_tpu.core.querytable import load_default_query_table  # noqa: E402
+from genomeassembler_dev_tpu.ops import histogram as jhist  # noqa: E402
 from genomeassembler_dev_tpu.ops import ks as jks  # noqa: E402
 from genomeassembler_dev_tpu.ops import match as jmatch  # noqa: E402
 from genomeassembler_dev_tpu.ops import windows as jwin  # noqa: E402
 from genomeassembler_dev_tpu.ops.edit_distance import (  # noqa: E402
     batched_levenshtein as j_lev)
+from genomeassembler_dev_tpu.ops.mxu import count_kmers_mxu  # noqa: E402
+from genomeassembler_dev_tpu.ops.pallas.edit_distance_kernel import (  # noqa: E402
+    batched_levenshtein_pallas as j_prefix_min)
+from genomeassembler_dev_tpu.ops.pallas.histogram_kernel import (  # noqa: E402
+    count_kmers_mxu_pallas)
 from genomeassembler_dev_tpu.ops.pallas.myers_kernel import (  # noqa: E402
     batched_levenshtein_myers as j_myers)
 from genomeassembler_dev_tpu.score.breakscore import breakscore as j_breakscore  # noqa: E402
 from genomeassembler_dev_tpu.spec import reference_semantics as spec  # noqa: E402
+from genomeassembler_dev_tpu_torch.ops import histogram as thist  # noqa: E402
 from genomeassembler_dev_tpu_torch.ops import ks as tks  # noqa: E402
 from genomeassembler_dev_tpu_torch.ops import windows as twin  # noqa: E402
 from genomeassembler_dev_tpu_torch.ops.edit_distance import (  # noqa: E402
     batched_levenshtein as t_lev, batched_levenshtein_auto as t_lev_auto)
 from genomeassembler_dev_tpu_torch.ops.match import find_first_match as t_match  # noqa: E402
 from genomeassembler_dev_tpu_torch.ops.myers import batched_levenshtein_myers  # noqa: E402
+from genomeassembler_dev_tpu_torch.ops.prefix_min import (  # noqa: E402
+    batched_levenshtein_prefix_min)
 from genomeassembler_dev_tpu_torch.score.breakscore import breakscore as t_breakscore  # noqa: E402
 
 RTOL = 2e-5
@@ -90,8 +99,9 @@ def adversarial_match_inputs(rng, read_len):
 
 
 class TestMatch:
-    @pytest.mark.parametrize("read_len", [12, 16, 31])
+    @pytest.mark.parametrize("read_len", [12, 16, 31, 32, 40, 47])
     def test_vs_grid_and_sorted(self, read_len):
+        """One int64 key up to 31 bases, jointly ranked word tuples above."""
         rng = np.random.default_rng(11 + read_len)
         args = adversarial_match_inputs(rng, read_len)
         tf, tp = t_match(*(torch.from_numpy(a) for a in args))
@@ -101,11 +111,6 @@ class TestMatch:
             np.testing.assert_array_equal(tf, jf, err_msg=fn.__name__)
             np.testing.assert_array_equal(tp, np.where(jf, jp, 0), err_msg=fn.__name__)
         assert tf.any() and not tf.all()
-
-    def test_long_reads_not_ported(self):
-        with pytest.raises(NotImplementedError):
-            t_match(torch.zeros((1, 64), dtype=torch.uint8), torch.tensor([64]),
-                    torch.zeros((1, 32), dtype=torch.uint8), torch.tensor([True]))
 
 
 class TestBreakscore:
@@ -163,6 +168,54 @@ class TestKS:
         np.testing.assert_allclose(t, j, rtol=RTOL)
 
 
+class TestHistogram:
+    """The cases of tests/test_pallas_kernels.py (TestPallasHistogram)."""
+
+    @staticmethod
+    def _inputs(k):
+        rng = np.random.default_rng(k)
+        codes = rng.integers(0, 4**k, size=(2, 700)).astype(np.int32)
+        valid = rng.random((2, 700)) < 0.9
+        return codes, valid
+
+    @pytest.mark.parametrize("k", [4, 8, 9])
+    def test_batched_vs_jax_and_pallas(self, k):
+        codes, valid = self._inputs(k)
+        thist.count_kmers_batched.launches = 0
+        got = thist.count_kmers_batched(torch.from_numpy(codes).long(),
+                                        torch.from_numpy(valid), 4**k)
+        assert thist.count_kmers_batched.launches == 0  # CPU tensors: plain version
+        assert got.dtype == torch.int32
+        jargs = (jnp.asarray(codes), jnp.asarray(valid))
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(jhist.count_kmers_batched(*jargs, 4**k)))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(count_kmers_mxu(*jargs, k)))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(
+            count_kmers_mxu_pallas(*jargs, k, chunk=256, interpret=True)))
+
+    @pytest.mark.parametrize("k", [4, 8, 9])
+    def test_flat_and_weighted_vs_jax(self, k):
+        codes, valid = self._inputs(k)
+        weights = np.random.default_rng(k + 1).random(codes.shape).astype(np.float32)
+        jargs = (jnp.asarray(codes), jnp.asarray(valid), 4**k)
+        got = thist.count_kmers(torch.from_numpy(codes), torch.from_numpy(valid), 4**k)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jhist.count_kmers(*jargs)))
+        got_w = thist.count_kmers(torch.from_numpy(codes), torch.from_numpy(valid), 4**k,
+                                  weights=torch.from_numpy(weights))
+        want_w = np.asarray(jhist.count_kmers(*jargs, weights=jnp.asarray(weights)))
+        assert got_w.dtype == torch.float32
+        np.testing.assert_allclose(got_w.numpy(), want_w, rtol=RTOL)
+
+    def test_wrapper_rejects(self):
+        codes = torch.zeros((2, 5), dtype=torch.int32)
+        with pytest.raises(ValueError):
+            thist.count_kmers_batched(codes, torch.ones((2, 4), dtype=torch.bool), 16)
+        with pytest.raises(ValueError):
+            thist.count_kmers_batched(codes.to("meta"),
+                                      torch.ones((2, 5), dtype=torch.bool, device="meta"), 16)
+
+
 def pallas_test_cases():
     """The cases of tests/test_pallas_kernels.py (TestMyersLevenshtein):
     random queries, whole target and an infix; multi-word and empty ones."""
@@ -196,11 +249,29 @@ class TestLevenshtein:
             got, np.asarray(j_myers(*jargs, mode=mode, block_b=128, interpret=True)))
         assert got.tolist() == [spec.levenshtein(q, target, mode=mode) for q in queries]
 
-    def test_wrapper_rejects_mixed_devices_and_modes(self):
+    @pytest.mark.parametrize("mode", ["NW", "HW"])
+    @pytest.mark.parametrize("case", [0, 1])
+    def test_prefix_min_plain_vs_jax_pallas(self, mode, case):
+        queries, target = pallas_test_cases()[case]
+        qmat, qlen = pack(queries, pad=0)
+        tgt = encode_dna(target)
+        batched_levenshtein_prefix_min.launches = 0
+        got = batched_levenshtein_prefix_min(torch.from_numpy(qmat), torch.from_numpy(qlen),
+                                             torch.from_numpy(tgt), mode=mode).numpy()
+        assert batched_levenshtein_prefix_min.launches == 0  # CPU tensors: plain DP
+        want = np.asarray(j_prefix_min(jnp.asarray(qmat), jnp.asarray(qlen),
+                                       jnp.asarray(tgt), mode=mode, block_b=16,
+                                       interpret=True))
+        np.testing.assert_array_equal(got, want)
+        assert got.tolist() == [spec.levenshtein(q, target, mode=mode) for q in queries]
+
+    @pytest.mark.parametrize("wrapper", [batched_levenshtein_myers,
+                                         batched_levenshtein_prefix_min])
+    def test_wrapper_rejects_mixed_devices_and_modes(self, wrapper):
         q = torch.zeros((1, 4), dtype=torch.uint8)
         with pytest.raises(ValueError):
-            batched_levenshtein_myers(q, torch.tensor([4], dtype=torch.int32),
-                                      torch.zeros(3, dtype=torch.uint8), mode="SHW")
+            wrapper(q, torch.tensor([4], dtype=torch.int32),
+                    torch.zeros(3, dtype=torch.uint8), mode="SHW")
         with pytest.raises(ValueError):
-            batched_levenshtein_myers(q, torch.tensor([4], dtype=torch.int32),
-                                      torch.zeros(3, dtype=torch.uint8, device="meta"))
+            wrapper(q, torch.tensor([4], dtype=torch.int32),
+                    torch.zeros(3, dtype=torch.uint8, device="meta"))

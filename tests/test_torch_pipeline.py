@@ -1,6 +1,6 @@
 """PyTorch port vs the JAX package end to end: Assembler.run_experiment on a
-replayed read set (all 13 result columns and the stats), the own_k9_rl12
-golden fixture, and the port's independence from jax."""
+replayed read set (all 13 result columns and the stats), the k-mer-count
+path, the own-dBG golden fixtures, and the port's independence from jax."""
 
 import dataclasses
 import json
@@ -27,7 +27,7 @@ from genomeassembler_dev_tpu_torch.pipeline import assembler as tasm  # noqa: E4
 from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FIXTURE = os.path.join(REPO, "tests", "golden", "fixtures", "own_k9_rl12.json")
+FIXTURES = os.path.join(REPO, "tests", "golden", "fixtures")
 RTOL = 2e-5
 INT_COLUMNS = ("sequence_len", "kmer_breaks", "lev_dist_vs_true")
 SMALL = dict(seq_len=300, read_len=12, coverage_target=15.0, kmer=8, dbg_kmer=9,
@@ -85,8 +85,11 @@ def test_stats_and_timings(replayed):
         "Evaluating each de novo assembled solution"}
 
 
-def test_golden_own_k9_rl12():
-    with open(FIXTURE) as f:
+@pytest.mark.parametrize("name", ["own_k9_rl12", "own_k13_rl16", "own_k15_rl20"])
+def test_golden_own(name):
+    """The dense path (k 9) and the sparse path (k 13, 15) against the
+    original C++'s outputs."""
+    with open(os.path.join(FIXTURES, f"{name}.json")) as f:
         fx = json.load(f)
     c, ref = fx["config"], fx["reference"]
     cfg = ExperimentConfig(seq_len=c["seq_len"], read_len=c["read_len"],
@@ -124,12 +127,36 @@ def test_config_mirrors_jax():
             ExperimentConfig(**bad).validate()
 
 
-def test_unported_paths_raise():
+@pytest.mark.parametrize("k", [2, 4, 6, 8])
+def test_count_only_vs_jax(jtable, k):
+    """The k-mer-count path on one replayed read set: the table's column and
+    the read k-mer counts equal JAX's."""
+    segment = synthetic_genome(43, 300)
+    rs = generate_reads(jax.random.key(1234), encode_dna(segment), jtable, 20, 15.0, k)
+    read_set = tuple(np.asarray(a) for a in (rs.codes, rs.valid, rs.positions))
+    kw = {**SMALL, "read_len": 20, "kmer": k, "only_kmers_from_reads": True}
+    jres = jasm.Assembler(JConfig(**kw), jtable).run_experiment(segment, read_set)
+    tres = tasm.Assembler(ExperimentConfig(**kw), "cpu",
+                          QueryTable.from_numpy(jtable.probs, "cpu")).run_experiment(
+                              segment, read_set)
+    assert list(tres.columns) == list(jres.columns) == ["prob", "count"]
+    np.testing.assert_array_equal(tres.columns["prob"], jres.columns["prob"])
+    np.testing.assert_array_equal(tres.columns["count"], jres.columns["count"])
+    assert tres.columns["count"].sum() > 0
+    assert tres.stats == jres.stats
+    assert list(tres.timings) == ["Extracting k-mers from sequencing reads"]
+
+
+def test_unported_paths_raise(tmp_path):
+    from genomeassembler_dev_tpu_torch.pipeline.experiments import run_own_study
+    from genomeassembler_dev_tpu_torch.sim.segments import synthetic_segment_store
+
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tasm.Assembler(ExperimentConfig(**SMALL, traversal="biased"), "cpu")
-    asm = tasm.Assembler(ExperimentConfig(**{**SMALL, "read_len": 16, "dbg_kmer": 13}), "cpu")
-    with pytest.raises(NotImplementedError, match="sparse"):
-        asm.run_experiment(synthetic_genome(1, 300))
+    segs = synthetic_segment_store(3, 250, 1)
+    for flag in ("batched", "plots"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            run_own_study(str(tmp_path), segs, "cpu", **{flag: True})
 
 
 def test_pack_strings_pad_rows():
@@ -144,10 +171,18 @@ def test_pack_strings_pad_rows():
 
 def test_port_imports_no_jax():
     modules = [
+        "genomeassembler_dev_tpu_torch.cli",
         "genomeassembler_dev_tpu_torch.pipeline.assembler",
+        "genomeassembler_dev_tpu_torch.pipeline.experiments",
+        "genomeassembler_dev_tpu_torch.pipeline.results",
+        "genomeassembler_dev_tpu_torch.ops.cuda_build",
+        "genomeassembler_dev_tpu_torch.ops.histogram",
         "genomeassembler_dev_tpu_torch.ops.myers",
+        "genomeassembler_dev_tpu_torch.ops.prefix_min",
         "genomeassembler_dev_tpu_torch.dbg.assemble",
+        "genomeassembler_dev_tpu_torch.dbg.graph",
         "genomeassembler_dev_tpu_torch.merge.engine",
+        "genomeassembler_dev_tpu_torch.sim.reads_io",
         "genomeassembler_dev_tpu_torch.sim.segments",
     ]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in modules)
