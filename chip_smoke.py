@@ -15,7 +15,17 @@ NVIDIA GPU.
   [6] runs `cli study-all` in process: the full own grid (7 rows x 4
       iterations at the study shape), the k-mer-count study and the GC
       study, then checks every artifact against the native engine, the
-      prefix-min kernel and the plain DP.
+      prefix-min kernel and the plain DP;
+  [8] replays the golden fixture velvet_k15_rl12, then runs `cli
+      study-velvet` once per row of the velvet grid on 50 kb segments with
+      velvet-contract contigs (tiles overlapping by dbg_kmer - 1), checks
+      every experiment against the segment, the native engine, the CPU KS
+      and the plain DP, and times the Myers kernel and the plain DP at the
+      velvet path's real shape;
+  [9] runs `cli study-own --traversal biased` on 1 kb segments with planted
+      repeats (rows 12:9, 16:13, 25:15) and checks every experiment against
+      a host string-level greedy walk, the port's CPU run, the native engine,
+      the prefix-min kernel and the plain DP.
 
     python3 chip_smoke.py
 
@@ -44,6 +54,12 @@ FIXTURES = [os.path.join(HERE, "tests", "golden", "fixtures", f"{n}.json")
             for n in ("own_k9_rl12", "own_k13_rl16", "own_k15_rl20")]
 STUDY_DIR = os.path.join(HERE, "build", "smoke_study")
 STUDY_ITERS = 4
+VELVET_FIXTURE = os.path.join(HERE, "tests", "golden", "fixtures", "velvet_k15_rl12.json")
+VELVET_DIR = os.path.join(HERE, "build", "smoke_velvet")
+VELVET_LEN = 50000  # the velvet study's segments (studies/STUDY_velvet_r5.md)
+VELVET_TILE = 5000
+BIASED_DIR = os.path.join(HERE, "build", "smoke_biased")
+BIASED_GRID = ((12, 9), (16, 13), (25, 15))  # the biased study's rows
 KERNELS = {  # name in the record: (csrc name, TPU kernel it replaces)
     "myers_levenshtein": ("myers", "genomeassembler_dev_tpu/ops/pallas/myers_kernel.py:58"),
     "kmer_histogram": ("histogram",
@@ -92,6 +108,37 @@ def max_err(got: torch.Tensor, want: torch.Tensor) -> int:
     return int((got.long() - want.long()).abs().max()) if got.numel() else 0
 
 
+def octamer_code(s: str) -> int:
+    code = 0
+    for ch in s:
+        code = 4 * code + "ACGT".index(ch)
+    return code
+
+
+def greedy_walks(reads: list[str], k: int, probs8: np.ndarray, max_len: int) -> list[str]:
+    """String-level biased traversal: from every (branch node, out-edge)
+    pair, continue along the out-edge whose junction octamer is most
+    probable (ties to the smallest base) to a dead end or max_len."""
+    out_edges: dict[str, set] = {}
+    in_deg: dict[str, int] = {}
+    for km in {r[i : i + k] for r in reads for i in range(len(r) - k + 1)}:
+        out_edges.setdefault(km[:-1], set()).add(km[-1])
+        in_deg[km[1:]] = in_deg.get(km[1:], 0) + 1
+    walks = set()
+    for node, chars in out_edges.items():
+        if in_deg.get(node, 0) == 1 and len(chars) == 1:
+            continue  # not a branch node
+        for c in chars:
+            s = node + c
+            while len(s) < max_len:
+                cands = out_edges.get(s[-(k - 1):])
+                if not cands:
+                    break
+                s += min(cands, key=lambda b: (-probs8[octamer_code(s[-7:] + b)], b))
+            walks.add(s)
+    return sorted(walks)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -104,14 +151,17 @@ def main() -> int:
     from genomeassembler_dev_tpu_torch.ops.edit_distance import batched_levenshtein
     from genomeassembler_dev_tpu_torch.ops.histogram import (
         count_kmers_batched, count_kmers_batched_plain)
+    from genomeassembler_dev_tpu_torch.ops.ks import batched_ks_2samp_masked
     from genomeassembler_dev_tpu_torch.ops.prefix_min import batched_levenshtein_prefix_min
     from genomeassembler_dev_tpu_torch.ops.windows import kmer_window_codes
     from genomeassembler_dev_tpu_torch.pipeline import results as res_io
     from genomeassembler_dev_tpu_torch.pipeline.assembler import (
         RESULT_COLUMNS, Assembler, pack_strings)
     from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
+    from genomeassembler_dev_tpu_torch.pipeline.velvet import (
+        VELVET_RESULT_COLUMNS, IndustryAssembler, path_prob_profile)
     from genomeassembler_dev_tpu_torch.sim.segments import (
-        synthetic_genome, synthetic_segment_store)
+        synthetic_genome, synthetic_segment_store, write_fasta)
     from genomeassembler_dev_tpu_torch.utils.timers import StageTimer
 
     dev = torch.device("cuda")
@@ -188,15 +238,15 @@ def main() -> int:
     print(f"[3] slice 512x2048x1000 NW: kernel {k_ms:.3f} ms, plain DP {p_ms:.3f} ms")
     record["myers_levenshtein"].update(ms=k_ms, plain_ms=p_ms)
 
-    # the velvet path's default shape: 256 x 2048 queries, HW, 50 kb target
+    # a plain HW shape: 256 x 2048 queries against a 50 kb target
     rng = np.random.default_rng(3)
     hw_args = (torch.from_numpy(rng.integers(0, 4, (256, 2048)).astype(np.uint8)).to(dev),
                torch.full((256,), 2048, dtype=torch.int32, device=dev),
                torch.from_numpy(rng.integers(0, 4, 50000).astype(np.uint8)).to(dev))
-    compare("velvet 256x2048x50000", hw_args, "HW")
+    compare("HW 256x2048x50000", hw_args, "HW")
     hk_ms = cuda_ms(lambda: myers.batched_levenshtein_myers(*hw_args, mode="HW"), 3)
     hp_ms = cuda_ms(lambda: batched_levenshtein(*hw_args, mode="HW"), 1)
-    print(f"[3] velvet 256x2048x50000 HW: kernel {hk_ms:.3f} ms, plain DP {hp_ms:.3f} ms")
+    print(f"[3] HW 256x2048x50000: kernel {hk_ms:.3f} ms, plain DP {hp_ms:.3f} ms")
 
     # -- phase 3b: prefix-min kernel vs the same plain results and Myers ------
     rec = record["prefix_min_levenshtein"]
@@ -211,7 +261,7 @@ def main() -> int:
     print(f"[3b] slice 512x2048x1000 NW: kernel {m_ms:.3f} ms, Myers {k_ms:.3f} ms, "
           f"plain DP {p_ms:.3f} ms")
     mh_ms = cuda_ms(lambda: batched_levenshtein_prefix_min(*hw_args, mode="HW"), 3)
-    print(f"[3b] velvet 256x2048x50000 HW: kernel {mh_ms:.3f} ms, Myers {hk_ms:.3f} ms, "
+    print(f"[3b] HW 256x2048x50000: kernel {mh_ms:.3f} ms, Myers {hk_ms:.3f} ms, "
           f"plain DP {hp_ms:.3f} ms")
     rec.update(ms=m_ms, plain_ms=p_ms)
 
@@ -440,6 +490,191 @@ def main() -> int:
         check(np.array_equal(got, want), f"kmer_count_vs_prob.csv k {k} != native counter")
     print(f"[6] {n_exp} experiments, {n_solutions} solutions; summaries, GC table and "
           "k-mer counts (k 2/4/6/8, equal to the native counter) agree")
+    # -- phase 8: the velvet study, cli study-velvet at 50 kb ----------------
+    with open(VELVET_FIXTURE) as f:
+        fx = json.load(f)
+    c, ref = fx["config"], fx["reference"]
+    vasm = IndustryAssembler(ExperimentConfig(
+        seq_len=c["seq_len"], read_len=c["read_len"], dbg_kmer=c["dbg_kmer"],
+        kmer=c["break_kmer"], seed=c["seed"], industry_standard=True), dev)
+    codes = np.stack([encode_dna(r) for r in fx["reads"]])
+    read_set = (codes, np.ones(len(codes), bool), np.zeros(len(codes), np.int32))
+    target = torch.from_numpy(encode_dna(fx["segment"])).to(dev)
+    ev = vasm.evaluate(ref["sequence"], vasm._replay_read_set(target, read_set), target)
+    for key, col in (("bp_score", "bp_score"), ("bp_nb", "bp_score_norm_by_break_freqs"),
+                     ("bp_nl", "bp_score_norm_by_len")):
+        check(np.allclose(ev[key], ref[col], rtol=RTOL, atol=0), f"{fx['name']} {col}")
+    for key, col in (("kmer_breaks", "kmer_breaks"), ("lev", "lev_dist_vs_true")):
+        check(np.array_equal(ev[key], ref[col]), f"{fx['name']} {col}")
+    mat, lens = pack_strings(ref["sequence"])
+    prof, prof_ok = path_prob_profile(torch.from_numpy(mat).to(dev),
+                                      torch.from_numpy(lens).to(dev), vasm.table.probs[8])
+    for i, want in enumerate(ref["path_prob_dist"]):
+        check(np.allclose(prof[i][prof_ok[i]].cpu().numpy(), want, rtol=RTOL, atol=0),
+              f"{fx['name']} path_prob_dist row {i}")
+    res = vasm.run_external(fx["segment"], fx["external_contigs"], read_set)
+    kept = [p for p in ref["sequence"] if fx["segment"].find(p) != -1]
+    check(sorted(res.columns["sequence"]) == sorted(kept), f"{fx['name']} kept solutions")
+    for s, sp in zip(res.columns["sequence"], res.columns["path_prob_dist_startpos"]):
+        check(sp == ref["path_prob_dist_startpos"][ref["sequence"].index(s)],
+              f"{fx['name']} startpos")
+    print(f"[8] {fx['name']}: {len(ref['solutions'])} solutions; scores within rtol 2e-5, "
+          "breaks, HW distances, profiles and startpos equal to the original C++")
+
+    shutil.rmtree(VELVET_DIR, ignore_errors=True)
+    vsegs = synthetic_segment_store(1234, VELVET_LEN, 1)
+    vbase = ExperimentConfig(seq_len=VELVET_LEN, read_len=12, kmer=8, coverage_target=40.0,
+                             seed=1234, industry_standard=True)
+    for _, k in ExperimentConfig.VELVET_STUDY_GRID:
+        step = VELVET_TILE - (k - 1)
+        write_fasta(os.path.join(VELVET_DIR, f"contigs_k{k}", "contigs_exp_1.fa"),
+                    {f"NODE_{j + 1}": vsegs.seqs[0][lo : lo + VELVET_TILE] for j, lo in
+                     enumerate(range(0, VELVET_LEN - (k - 1), step))})
+    torch.cuda.synchronize()
+    myers.batched_levenshtein_myers.launches = 0
+    peaks = {}
+    t0 = time.time()
+    for read_len, k in ExperimentConfig.VELVET_STUDY_GRID:
+        torch.cuda.reset_peak_memory_stats()
+        cli.main(["study-velvet", "--synthetic", "--seq-len", str(VELVET_LEN),
+                  "--total-iters", "1", "--grid", f"{read_len}:{k}",
+                  "--contigs-dir", os.path.join(VELVET_DIR, f"contigs_k{k}"),
+                  "--workdir", VELVET_DIR, "--device", "cuda"])
+        peaks[(read_len, k)] = torch.cuda.max_memory_allocated()
+    velvet_wall = time.time() - t0
+    velvet_launches = myers.batched_levenshtein_myers.launches
+    check(velvet_launches > 0, "the Myers kernel was not launched by study-velvet")
+    print(f"[8] study-velvet: {len(peaks)} rows in {velvet_wall:.3f} s; Myers launches "
+          f"{velvet_launches}")
+
+    segment = vsegs.seqs[0]
+    target = torch.from_numpy(encode_dna(segment)).to(dev)
+    for read_len, k in ExperimentConfig.VELVET_STUDY_GRID:
+        what = f"velvet row {read_len}:{k}"
+        cfg = vbase.with_(read_len=read_len, dbg_kmer=k)
+        path = res_io.solutions_path(VELVET_DIR, 1, cfg)
+        with open(path, newline="") as f:
+            check(next(csv.reader(f)) == VELVET_RESULT_COLUMNS, f"{what}: columns")
+        cols = res_io.load_result_columns(path)
+        with open(res_io.stats_path(VELVET_DIR, 1, cfg)) as f:
+            timings = json.load(f)["timings"]
+        check(cols["sequence"] == [segment], f"{what}: the one solution is the segment")
+        check(cols["path_prob_dist_startpos"].tolist() == [0], f"{what}: startpos")
+        check(cols["lev_dist_vs_true"].tolist() == [0], f"{what}: lev_dist_vs_true")
+        check(cols["contig_frac_len"].tolist() == [100.0], f"{what}: contig_frac_len")
+        asm = IndustryAssembler(cfg, dev)
+        rs = asm.simulate(target, StageTimer(dev, False))
+        reads = reads_of(rs)
+        scores, breaks = native.breakscore_native(cols["sequence"], reads, probs)
+        check(np.array_equal(cols["kmer_breaks"], breaks), f"{what}: kmer_breaks != native")
+        check(np.allclose(cols["bp_score_true"], scores, rtol=RTOL, atol=0),
+              f"{what}: bp_score != native engine")
+        mat, lens = pack_strings(cols["sequence"])
+        prof, prof_ok = path_prob_profile(torch.from_numpy(mat), torch.from_numpy(lens),
+                                          asm.table.probs[8].cpu())
+        cpu_ks = batched_ks_2samp_masked(prof, prof_ok, rs.track.cpu()).numpy()
+        for col in ("stat_test_KS_true", "stat_test_KS_random"):
+            check(np.array_equal(cols[col], cpu_ks), f"{what}: {col} != CPU KS")
+        if (read_len, k) in ((12, 11), (40, 37)):
+            plain = batched_levenshtein(torch.from_numpy(mat).to(dev),
+                                        torch.from_numpy(lens).to(dev), target, "HW")
+            check(np.array_equal(cols["lev_dist_vs_true"], plain.cpu().numpy()),
+                  f"{what}: lev_dist_vs_true != plain DP")
+        print(f"[8] {what}: 1 solution = the segment, startpos 0, HW distance 0, 100% "
+              f"covered; breaks and scores agree with the native engine, KS with the CPU"
+              f"{', distance with the plain DP' if (read_len, k) in ((12, 11), (40, 37)) else ''}"
+              f"; peak {peaks[(read_len, k)] / 2**30:.3f} GiB; stage ms: " + ", ".join(
+                  f"{name} {1e3 * t:.2f}" for name, t in timings.items()))
+
+    # K1 and the plain DP at the velvet path's real shape: [64, 50,048] with
+    # one real 50,000-base row, HW, against the 50 kb segment
+    mat, lens = pack_strings([segment], s_multiple=64, l_multiple=128)
+    check(mat.shape == (64, 50048), f"velvet shape {mat.shape}")
+    vargs = (torch.from_numpy(mat).to(dev), torch.from_numpy(lens).to(dev), target)
+    row_args = (vargs[0][:1, :VELVET_LEN].contiguous(), vargs[1][:1].contiguous(), target)
+    outs = {"kernel": [], "plain": [], "row": []}
+    vk_ms = cuda_ms(lambda: outs["kernel"].append(
+        myers.batched_levenshtein_myers(*vargs, mode="HW")), 1)
+    vp_ms = cuda_ms(lambda: outs["plain"].append(batched_levenshtein(*vargs, mode="HW")), 1)
+    vr_ms = cuda_ms(lambda: outs["row"].append(batched_levenshtein(*row_args, mode="HW")), 1)
+    check(torch.equal(outs["kernel"][0], outs["plain"][0]), "velvet shape: kernel != plain DP")
+    check(outs["kernel"][0].tolist() == [0] * 64 and outs["row"][0].tolist() == [0],
+          "velvet shape: HW distances")
+    print(f"[8] velvet shape 64x50048 (1 real row) x 50000 HW: kernel {vk_ms:.3f} ms, "
+          f"plain DP {vp_ms:.3f} ms, plain DP on the real row [1, 50000] {vr_ms:.3f} ms")
+    record["myers_levenshtein"].update(velvet_ms=vk_ms, velvet_plain_ms=vp_ms,
+                                       velvet_row_plain_ms=vr_ms)
+
+    # -- phase 9: the biased traversal, cli study-own --traversal biased ------
+    shutil.rmtree(BIASED_DIR, ignore_errors=True)
+    grid = ",".join(f"{r}:{k}" for r, k in BIASED_GRID)
+    torch.cuda.synchronize()
+    myers.batched_levenshtein_myers.launches = 0
+    batched_levenshtein_prefix_min.launches = 0
+    t0 = time.time()
+    cli.main(["study-own", "--traversal", "biased", "--repeat-segments", "--synthetic",
+              "--grid", grid, "--total-iters", str(STUDY_ITERS), "--workdir", BIASED_DIR,
+              "--device", "cuda"])
+    biased_wall = time.time() - t0
+    biased_launches = myers.batched_levenshtein_myers.launches
+    check(biased_launches > 0, "the Myers kernel was not launched by the biased study")
+    check(batched_levenshtein_prefix_min.launches == 0, "prefix-min launched in the study")
+    print(f"[9] study-own --traversal biased: {len(BIASED_GRID)} rows x {STUDY_ITERS} in "
+          f"{biased_wall:.3f} s; Myers launches {biased_launches}")
+    record["myers_levenshtein"]["launches"] += velvet_launches + biased_launches
+
+    bbase = ExperimentConfig(seq_len=1000, read_len=12, dbg_kmer=9, kmer=8,
+                             coverage_target=40.0, seed=1234, n_orderings=10000,
+                             traversal="biased")
+    bsegs = synthetic_segment_store(bbase.seed, bbase.seq_len, STUDY_ITERS, repeats=True)
+    for read_len, k in BIASED_GRID:
+        cfg = bbase.with_(read_len=read_len, dbg_kmer=k)
+        asm, cpu_asm = Assembler(cfg, dev), Assembler(cfg, "cpu")
+        probs8_np = cpu_asm.table.probs[8].numpy()
+        stage_sum = {}
+        n_capped = n_sol = 0
+        for ind in range(1, STUDY_ITERS + 1):
+            what = f"biased row {read_len}:{k} exp {ind}"
+            path = res_io.solutions_path(BIASED_DIR, ind, cfg)
+            cols = res_io.load_result_columns(path)
+            with open(res_io.stats_path(BIASED_DIR, ind, cfg)) as f:
+                for name, t in json.load(f)["timings"].items():
+                    stage_sum[name] = stage_sum.get(name, 0.0) + t
+            target = torch.from_numpy(encode_dna(bsegs.seqs[ind - 1])).to(dev)
+            timer = StageTimer(dev, False)
+            rs = asm.simulate(target, timer)
+            reads = reads_of(rs)
+            contigs = asm.contigs(rs.codes, rs.valid, timer)
+            check(contigs == greedy_walks(reads, k, probs8_np, cfg.contig_cap),
+                  f"{what}: contigs != host greedy walk")
+            check(contigs == cpu_asm.contigs(rs.codes.cpu(), rs.valid.cpu(),
+                                             StageTimer("cpu", False)),
+                  f"{what}: contigs != the port's CPU run")
+            want = sorted(set(contigs), key=lambda s: (-len(s), s))[: cfg.biased_max_solutions]
+            check(sorted(cols["sequence"]) == sorted(want), f"{what}: solutions")
+            n_capped += sum(len(s) == cfg.contig_cap for s in contigs)
+            n_sol += len(want)
+            scores, breaks = native.breakscore_native(cols["sequence"], reads, probs)
+            check(np.array_equal(cols["kmer_breaks"], breaks), f"{what}: kmer_breaks != native")
+            check(np.allclose(cols["bp_score_true"], scores, rtol=RTOL, atol=0),
+                  f"{what}: bp_score != native engine")
+            mat, lens = pack_strings(cols["sequence"])
+            args = (torch.from_numpy(mat).to(dev), torch.from_numpy(lens).to(dev), target)
+            k3 = batched_levenshtein_prefix_min(*args, mode="NW").cpu().numpy()
+            check(np.array_equal(cols["lev_dist_vs_true"], k3),
+                  f"{what}: lev_dist_vs_true != prefix-min kernel")
+            if ind == 1:
+                plain = batched_levenshtein(*args, mode="NW").cpu().numpy()
+                check(np.array_equal(cols["lev_dist_vs_true"], plain),
+                      f"{what}: lev_dist_vs_true != plain DP")
+        print(f"[9] biased row {read_len}:{k}: {STUDY_ITERS} experiments, {n_sol} solutions "
+              f"({n_capped} contigs capped at {cfg.contig_cap}); contigs equal to the host "
+              "greedy walk and the CPU run, breaks and scores to the native engine, "
+              "distances to the prefix-min kernel and (exp 1) the plain DP; stage ms per "
+              "experiment: " + ", ".join(f"{name} {1e3 * t / STUDY_ITERS:.2f}"
+                                         for name, t in stage_sum.items()))
+    record["prefix_min_levenshtein"]["launches"] += batched_levenshtein_prefix_min.launches
+
     print(f"[7] total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(record.values())}))

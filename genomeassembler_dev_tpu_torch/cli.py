@@ -5,18 +5,20 @@
   python -m genomeassembler_dev_tpu_torch.cli study-all  # 02 -> 01 -> 03
   python -m genomeassembler_dev_tpu_torch.cli study-kmer-count  # scripts/01
   python -m genomeassembler_dev_tpu_torch.cli study-gc   # scripts/03
+  python -m genomeassembler_dev_tpu_torch.cli study-velvet  # scripts/00
 
 Segments come from --segments-fasta (the reference's SampledRefGenome
 contract) or a seeded synthetic store (--synthetic). Everything runs on
 --device (default cuda); without a card the port stops rather than run on the
 CPU, which has to be asked for with --device cpu. Not ported yet, and absent
-here: study-velvet, study-plots, fit-model and bench-scaling.
+here: study-plots, fit-model and bench-scaling.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 
@@ -33,8 +35,7 @@ def _add_common(p):
     p.add_argument("--n-orderings", type=int, default=10000)
     p.add_argument("--traversal", default="standard",
                    choices=["standard", "biased"],
-                   help="biased = probability-guided branch continuation "
-                        "(not ported yet)")
+                   help="biased = probability-guided branch continuation")
     p.add_argument("--biased-max-solutions", type=int, default=256,
                    help="keep the longest N biased assemblies as solutions")
     p.add_argument("--segments-fasta", default=None)
@@ -147,6 +148,43 @@ def cmd_study_all(args):
     }))
 
 
+def cmd_study_velvet(args):
+    """scripts/00: contigs from --contigs-dir (contigs_exp_<i>.fa), else
+    from velveth/velvetg on PATH, else stop."""
+    from genomeassembler_dev_tpu_torch.pipeline.experiments import run_velvet_study
+    from genomeassembler_dev_tpu_torch.pipeline.velvet import IndustryAssembler
+    from genomeassembler_dev_tpu_torch.sim.segments import read_fasta
+
+    if args.contigs_dir:
+        def source(asm, segment, ind):
+            path = os.path.join(args.contigs_dir, f"contigs_exp_{ind}.fa")
+            return list(read_fasta(path).values())
+    elif IndustryAssembler.velvet_available():
+        def source(asm, segment, ind):
+            import torch
+
+            from genomeassembler_dev_tpu_torch.core.encoding import encode_dna
+            from genomeassembler_dev_tpu_torch.sim.reads_io import save_read_fastas
+            from genomeassembler_dev_tpu_torch.utils.timers import StageTimer
+
+            rs = asm.simulate(torch.from_numpy(encode_dna(segment)).to(asm.device),
+                              StageTimer(asm.device, verbose=False))
+            p1, p2, _ = save_read_fastas(
+                args.workdir, ind, asm.config, rs.codes.cpu().numpy(),
+                rs.valid.cpu().numpy(), rs.positions.cpu().numpy(), segment)
+            return asm.run_velvet(p1, p2, os.path.join(args.workdir, "velvet", f"exp_{ind}"))
+    else:
+        raise SystemExit("study-velvet needs --contigs-dir (contigs_exp_<i>.fa files) "
+                         "or velveth/velvetg on PATH")
+
+    dev = _device(args)
+    rep = run_velvet_study(args.workdir, _segments(args), source, dev,
+                           base=_config(args, industry_standard=True), grid=_grid(args),
+                           total_iters=args.total_iters, verbose=args.verbose)
+    print(json.dumps({"summary": rep.summary_path, "all": rep.all_path,
+                      "ran": rep.n_experiments, "skipped": rep.n_skipped}))
+
+
 def cmd_study_kmer_count(args):
     from genomeassembler_dev_tpu_torch.pipeline.experiments import run_kmer_count_study
 
@@ -182,6 +220,16 @@ def main(argv=None):
     _add_common(p)
     _add_study(p)
     p.set_defaults(fn=cmd_study_all)
+
+    p = sub.add_parser("study-velvet",
+                       help="industry-standard study (scripts/00); external "
+                            "contigs or velvet binaries")
+    _add_common(p)
+    p.add_argument("--grid", default=None,
+                   help="comma list of read_len:dbg_kmer pairs, e.g. 12:11,40:37")
+    p.add_argument("--contigs-dir", default=None,
+                   help="directory of contigs_exp_<i>.fa files")
+    p.set_defaults(fn=cmd_study_velvet)
 
     p = sub.add_parser("study-kmer-count", help="k-mer count vs prob (scripts/01)")
     _add_common(p)

@@ -6,8 +6,9 @@ table. The break-count matrix does not depend on the table, so it is built
 once and both score families are dot products against it.
 
 Ported: the standard traversal for every dbg_kmer up to 31 with the native
-merge, and the k-mer-count path (only_kmers_from_reads). Everything runs on
-the Assembler's explicit `device`.
+merge, the biased traversal (dbg/biased.py) for dbg_kmer 9-31, and the
+k-mer-count path (only_kmers_from_reads). Everything runs on the Assembler's
+explicit `device`.
 """
 
 from __future__ import annotations
@@ -20,14 +21,15 @@ import torch
 from genomeassembler_dev_tpu_torch.core.encoding import INVALID, encode_dna
 from genomeassembler_dev_tpu_torch.core.querytable import (
     QueryTable, load_default_query_table)
-from genomeassembler_dev_tpu_torch.dbg.assemble import contigs_from_read_codes
+from genomeassembler_dev_tpu_torch.dbg.assemble import contigs_from_read_codes, dedup_contigs
+from genomeassembler_dev_tpu_torch.dbg.biased import biased_contigs
 from genomeassembler_dev_tpu_torch.merge.engine import assemble_solutions
 from genomeassembler_dev_tpu_torch.ops.edit_distance import batched_levenshtein_auto
 from genomeassembler_dev_tpu_torch.ops.histogram import count_kmers
 from genomeassembler_dev_tpu_torch.ops.ks import batched_ks_2samp
 from genomeassembler_dev_tpu_torch.ops.windows import kmer_window_codes
 from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
-from genomeassembler_dev_tpu_torch.score.breakscore import breakscore, dot_f32
+from genomeassembler_dev_tpu_torch.score.breakscore import BreakScores, breakscore, dot_f32
 from genomeassembler_dev_tpu_torch.sim.reads import (
     ReadSet, dedup_reads, generate_reads, probability_track)
 from genomeassembler_dev_tpu_torch.utils.timers import StageTimer
@@ -103,9 +105,6 @@ class Assembler:
     def __init__(self, config: ExperimentConfig, device, table: QueryTable | None = None,
                  verbose: bool = False):
         self.config = config.validate()
-        if self.config.traversal != "standard":
-            raise NotImplementedError(
-                "the biased traversal is not ported yet (ROADMAP.md Queue 1, item 5)")
         self.device = torch.device(device)
         self.table = table if table is not None else load_default_query_table(self.device)
         self.uniform = QueryTable.uniform(self.device)
@@ -137,14 +136,47 @@ class Assembler:
                 timer: StageTimer) -> list[str]:
         cfg = self.config
         with timer.stage("Running DBG de novo genome assembler"):
+            if cfg.traversal == "biased":
+                return self._biased_contigs(read_codes, read_valid)
             return contigs_from_read_codes(read_codes, read_valid, cfg.dbg_kmer,
                                            cfg.contig_cap)
+
+    def _biased_contigs(self, read_codes: torch.Tensor,
+                        read_valid: torch.Tensor) -> list[str]:
+        """Probability-guided traversal: greedy continuation through branches
+        by junction-octamer probability, on the one int64 graph for every k."""
+        cfg = self.config
+        kcodes, kvalid = kmer_window_codes(read_codes, cfg.dbg_kmer, dtype=torch.int64)
+        buf, lens, wvalid, overflow, _, _ = biased_contigs(
+            kcodes, kvalid & read_valid[:, None], self.table.probs[8],
+            cfg.dbg_kmer, cfg.contig_cap)
+        # capped (overflowing) walks are kept at their truncated length
+        return dedup_contigs(buf.cpu().numpy(), lens.cpu().numpy(), wvalid.cpu().numpy(),
+                             np.zeros(overflow.shape, bool))
 
     def merge(self, contigs: list[str], timer: StageTimer) -> list[str]:
         cfg = self.config
         with timer.stage("Merging shuffled contig orderings"):
+            if cfg.traversal == "biased":
+                # biased walks already continue through branches to dead
+                # ends, so each walk is a maximal candidate assembly and the
+                # ordering-ensemble merge (a fragment joiner) is skipped: the
+                # solutions are the sorted deduped walks, longest first,
+                # truncated to biased_max_solutions
+                sols = sorted(set(contigs), key=lambda s: (-len(s), s))
+                return sols[: cfg.biased_max_solutions]
             return assemble_solutions(contigs, cfg.dbg_kmer, cfg.seed,
                                       cfg.n_orderings, backend=cfg.merge_backend)
+
+    def random_scores(self, bs: BreakScores, plens: torch.Tensor):
+        """The random pass: the same break counts against the uniform table.
+        Returns (bp_score, norm_by_break_freqs, norm_by_len), each [S]."""
+        uni = self.uniform.combined.to(torch.float32)
+        total = bs.kmer_breaks.to(torch.float32).clamp(min=1.0)
+        bp_rand = dot_f32(bs.site_counts, uni)
+        norm_breaks = torch.where(
+            bs.kmer_breaks > 0, dot_f32(bs.site_counts / total[:, None], uni), 0.0)
+        return bp_rand, norm_breaks, bp_rand / plens.to(torch.float32).clamp(min=1.0)
 
     def score(self, solutions: list[str], rs: ReadSet, genome_codes: torch.Tensor,
               timer: StageTimer) -> dict[str, np.ndarray | list]:
@@ -158,15 +190,7 @@ class Assembler:
             rcodes, rcounts, rvalid = pad_reads(uniq, counts, cfg.read_chunk)
             bs = breakscore(pmat, plens, rcodes, rcounts, rvalid,
                             self.table.combined, break_kmer=cfg.kmer)
-            # random pass: the same break counts against the uniform table
-            uni = self.uniform.combined.to(torch.float32)
-            site_counts = bs.site_counts
-            total = bs.kmer_breaks.to(torch.float32).clamp(min=1.0)
-            bp_rand = dot_f32(site_counts, uni)
-            bp_rand_norm_breaks = torch.where(
-                bs.kmer_breaks > 0, dot_f32(site_counts / total[:, None], uni), 0.0)
-            bp_rand_norm_len = bp_rand / plens.to(torch.float32).clamp(min=1.0)
-
+            bp_rand, bp_rand_norm_breaks, bp_rand_norm_len = self.random_scores(bs, plens)
             lev = batched_levenshtein_auto(pmat, plens, genome_codes, mode="NW")
             ks = batched_ks_2samp(bs.path_freq, rs.track)
 
@@ -217,6 +241,17 @@ class Assembler:
 
     # -- full experiment ----------------------------------------------------
 
+    def _stats(self, segment: str, genome_np: np.ndarray, rs: ReadSet) -> dict:
+        """The dbg_summary stats of one experiment."""
+        n_reads = int(rs.valid.sum())
+        acgt = np.bincount(genome_np[genome_np <= 3], minlength=4)
+        return {
+            "base_composition": (acgt / len(segment)).tolist(),
+            "coverage": round(n_reads * self.config.read_len / self.config.seq_len, 3),
+            "nr_of_reads": n_reads,
+            "genome_seq": segment,
+        }
+
     def run_experiment(self, segment: str, read_set: tuple | None = None) -> ExperimentResult:
         """Run one experiment. `read_set` optionally replays a stored
         (codes, valid, positions) tuple instead of simulating: given
@@ -230,14 +265,7 @@ class Assembler:
         else:
             rs = self.simulate(genome_codes, timer)
 
-        n_reads = int(rs.valid.sum())
-        acgt = np.bincount(genome_np[genome_np <= 3], minlength=4)
-        stats = {
-            "base_composition": (acgt / len(segment)).tolist(),
-            "coverage": round(n_reads * cfg.read_len / cfg.seq_len, 3),
-            "nr_of_reads": n_reads,
-            "genome_seq": segment,
-        }
+        stats = self._stats(segment, genome_np, rs)
         if cfg.only_kmers_from_reads:
             cols = self.count_only(rs, timer)
             return ExperimentResult(columns=cols, stats=stats, timings=timer.times)

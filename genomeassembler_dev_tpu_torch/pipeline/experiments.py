@@ -10,13 +10,15 @@
   * run_gc_study       — scripts/03_GC_content_dependency.R: GC content of
                          each segment vs its mean scores from the saved
                          SolutionsTables.
+  * run_velvet_study   — scripts/00_Real_vs_rand_prob_velvet.R: the velvet
+                         grid on externally assembled contigs.
 
 Plot generation is replaced by the CSV outputs the plots were drawn from
 (SURVEY.md §7.4); any plotting stack can consume them.
 
 Mirrors genomeassembler_dev_tpu/pipeline/experiments.py on an explicit
-device. Not ported yet: the batched runner (`batched=True`), the
-per-experiment plots (`plots=True`) and the velvet study; each raises.
+device. Not ported yet: the batched runner (`batched=True`) and the
+per-experiment plots (`plots=True`); each raises.
 """
 
 from __future__ import annotations
@@ -45,6 +47,22 @@ def _write_csv(path: str, names: list[str], rows: list[list]) -> None:
         w = csv.writer(f)
         w.writerow(names)
         w.writerows(rows)
+
+
+# the reference's results_all column selection (scripts/02_…:174-210,
+# 00_…:175-216) plus experiment index and the random-score column our
+# stats use
+RESULTS_ALL_HEADER = [
+    "read_len", "dbg_kmer", "experiment", "sequence_len", "kmer_breaks",
+    "bp_score_norm_by_break_freqs_true", "bp_score_norm_by_len_true",
+    "bp_score_true", "bp_score_random", "lev_dist_vs_true", "stat_test_KS_true",
+]
+
+
+def _results_all_rows(read_len: int, dbg_kmer: int, ind: int, cols: dict) -> list[list]:
+    """One results_all row per solution of a loaded SolutionsTable."""
+    return [[read_len, dbg_kmer, ind] + [cols[name][r] for name in RESULTS_ALL_HEADER[3:]]
+            for r in range(len(cols["sequence_len"]))]
 
 
 @dataclass
@@ -131,30 +149,15 @@ def run_own_study(
                     read_len, dbg_kmer, "bp_score_norm_by_len", mean,
                     key.endswith("_random"),
                 ])
-            for r in range(len(cols["sequence"])):
-                all_rows.append([
-                    read_len, dbg_kmer, i,
-                    cols["sequence_len"][r], cols["kmer_breaks"][r],
-                    cols["bp_score_norm_by_break_freqs_true"][r],
-                    cols["bp_score_norm_by_len_true"][r],
-                    cols["bp_score_true"][r], cols["bp_score_random"][r],
-                    cols["lev_dist_vs_true"][r], cols["stat_test_KS_true"][r],
-                ])
+            all_rows += _results_all_rows(read_len, dbg_kmer, i, cols)
 
     out_dir = os.path.join(workdir, f"IndustryModel_{base.industry_standard}")
     summary_path = os.path.join(out_dir, "results_summary.csv")
     _write_csv(summary_path,
                ["read_len", "dbg_kmer", "Key", "Value", "random_prob"],
                summary_rows)
-    # the reference's results_all column selection (scripts/02_…:174-210)
-    # plus experiment index and the random-score column our stats use
     all_path = os.path.join(out_dir, "results_all.csv")
-    _write_csv(all_path,
-               ["read_len", "dbg_kmer", "experiment", "sequence_len",
-                "kmer_breaks", "bp_score_norm_by_break_freqs_true",
-                "bp_score_norm_by_len_true", "bp_score_true",
-                "bp_score_random", "lev_dist_vs_true", "stat_test_KS_true"],
-               all_rows)
+    _write_csv(all_path, RESULTS_ALL_HEADER, all_rows)
     return StudyReport(summary_path, all_path, n_run, n_skip)
 
 
@@ -294,6 +297,73 @@ def count_prob_r_squared(prob: np.ndarray, count: np.ndarray) -> float:
     ss_res = float(((count - pred) ** 2).sum())
     ss_tot = float(((count - count.mean()) ** 2).sum())
     return 1.0 - ss_res / ss_tot if ss_tot else float("nan")
+
+
+def run_velvet_study(
+    workdir: str,
+    segments: SegmentStore,
+    contig_source,
+    device,
+    base: ExperimentConfig | None = None,
+    grid: tuple[tuple[int, int], ...] | None = None,
+    total_iters: int | None = None,
+    table: QueryTable | None = None,
+    verbose: bool = False,
+) -> StudyReport:
+    """The industry-standard study (scripts/00_Real_vs_rand_prob_velvet.R) on
+    `device`: the own study's shape, with contigs from an external assembler.
+
+    contig_source(assembler, segment, ind) -> list[str] supplies the
+    external contigs: IndustryAssembler.run_velvet when the velvet binaries
+    exist, or any user-provided assembly."""
+    from genomeassembler_dev_tpu_torch.pipeline.velvet import IndustryAssembler
+
+    base = (base or ExperimentConfig(seq_len=50000, coverage_target=40.0,
+                                     kmer=8, seed=1234)).with_(industry_standard=True)
+    grid = grid or ExperimentConfig.VELVET_STUDY_GRID
+    total_iters = total_iters or len(segments)
+    table = table if table is not None else load_default_query_table(device)
+
+    n_run = n_skip = 0
+    for read_len, dbg_kmer in grid:
+        cfg = base.with_(read_len=read_len, dbg_kmer=dbg_kmer)
+        asm = IndustryAssembler(cfg, device, table, verbose=verbose)
+        for i in range(1, total_iters + 1):
+            if res_io.experiment_done(workdir, i, cfg):
+                n_skip += 1
+                continue
+            contigs = contig_source(asm, segments.seqs[i - 1], i)
+            res = asm.run_external(segments.seqs[i - 1], contigs)
+            res_io.save_result(workdir, i, cfg, res)
+            n_run += 1
+
+    # aggregation (scripts/00_…:55-120): per-experiment mean rows of the KS
+    # and length-normalised scores, and per-solution results_all rows
+    # (00_…:175-216)
+    summary_rows = []
+    all_rows = []
+    for read_len, dbg_kmer in grid:
+        cfg = base.with_(read_len=read_len, dbg_kmer=dbg_kmer)
+        for i in range(1, total_iters + 1):
+            path = res_io.solutions_path(workdir, i, cfg)
+            if not os.path.exists(path):
+                continue
+            cols = res_io.load_result_columns(path)
+            for key in ("stat_test_KS_true", "stat_test_KS_random",
+                        "bp_score_norm_by_len_true", "bp_score_norm_by_len_random"):
+                vals = cols.get(key, [])
+                mean = float(np.nanmean(vals)) if len(vals) else float("nan")
+                summary_rows.append([read_len, dbg_kmer, key.rsplit("_", 1)[0], mean,
+                                     key.endswith("_random")])
+            all_rows += _results_all_rows(read_len, dbg_kmer, i, cols)
+    out_dir = os.path.join(workdir, "IndustryModel_True")
+    summary_path = os.path.join(out_dir, "results_summary.csv")
+    _write_csv(summary_path,
+               ["read_len", "dbg_kmer", "Key", "Value", "random_prob"],
+               summary_rows)
+    all_path = os.path.join(out_dir, "results_all.csv")
+    _write_csv(all_path, RESULTS_ALL_HEADER, all_rows)
+    return StudyReport(summary_path, all_path, n_run, n_skip)
 
 
 def run_kmer_count_study(

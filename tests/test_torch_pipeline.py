@@ -151,8 +151,6 @@ def test_unported_paths_raise(tmp_path):
     from genomeassembler_dev_tpu_torch.pipeline.experiments import run_own_study
     from genomeassembler_dev_tpu_torch.sim.segments import synthetic_segment_store
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tasm.Assembler(ExperimentConfig(**SMALL, traversal="biased"), "cpu")
     segs = synthetic_segment_store(3, 250, 1)
     for flag in ("batched", "plots"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -180,6 +178,8 @@ def test_port_imports_no_jax():
         "genomeassembler_dev_tpu_torch.ops.myers",
         "genomeassembler_dev_tpu_torch.ops.prefix_min",
         "genomeassembler_dev_tpu_torch.dbg.assemble",
+        "genomeassembler_dev_tpu_torch.dbg.biased",
+        "genomeassembler_dev_tpu_torch.pipeline.velvet",
         "genomeassembler_dev_tpu_torch.dbg.graph",
         "genomeassembler_dev_tpu_torch.merge.engine",
         "genomeassembler_dev_tpu_torch.sim.reads_io",
