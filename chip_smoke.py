@@ -5,8 +5,11 @@ NVIDIA GPU.
   [1] the card;
   [2] builds the three kernels from csrc/ (myers.cu, histogram.cu,
       prefix_min.cu), all nvcc processes at once;
-  [3] holds the Myers kernel against the plain DP, and [3b] the prefix-min
-      kernel against the same plain results and the Myers kernel;
+  [3] holds the Myers kernel against the plain DP, on the TPU kernel's test
+      cases, on queries at the edges of its launch plan (strips, warps,
+      bands; alone and mixed in one launch) and at the study shapes, and
+      [3b] the prefix-min kernel against the same plain results and the
+      Myers kernel wherever it takes the width;
   [3c] holds the histogram kernel against its plain version and the native
       C++ k-mer counter;
   [4] replays the golden fixtures own_k9_rl12, own_k13_rl16 and own_k15_rl20;
@@ -20,8 +23,9 @@ NVIDIA GPU.
       study-velvet` once per row of the velvet grid on 50 kb segments with
       velvet-contract contigs (tiles overlapping by dbg_kmer - 1), checks
       every experiment against the segment, the native engine, the CPU KS
-      and the plain DP, and times the Myers kernel and the plain DP at the
-      velvet path's real shape;
+      and the plain DP, times the Myers kernel and the plain DP at the
+      velvet path's real shape, and the kernel on a repeat-heavy ensemble
+      (256 mutated 2x copies of the segment, rows 0-3 against the plain DP);
   [9] runs `cli study-own --traversal biased` on 1 kb segments with planted
       repeats (rows 12:9, 16:13, 25:15) and checks every experiment against
       a host string-level greedy walk, the port's CPU run, the native engine,
@@ -41,6 +45,7 @@ import csv
 import glob
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -68,6 +73,8 @@ KERNELS = {  # name in the record: (csrc name, TPU kernel it replaces)
                                "genomeassembler_dev_tpu/ops/pallas/edit_distance_kernel.py:32"),
 }
 RTOL = 2e-5  # float32 scores: the JAX package's float32 tolerance
+# query lengths at the Myers kernel's strip, warp and band edges
+EDGE_LENGTHS = (1, 31, 32, 33, 63, 64, 65, 1024, 1025, 8192, 8193, 16385, 50048)
 
 
 def check(ok: bool, what: str) -> None:
@@ -91,6 +98,17 @@ def mutate(rng, s: str, rate: float) -> str:
         elif r >= 3 * rate:
             out.append(ch)
     return "".join(out)
+
+
+def mutate_codes(rng, codes: np.ndarray, rate: float) -> np.ndarray:
+    """mutate() on base codes, vectorised: substitutions, insertions and
+    deletions at `rate` each."""
+    r = rng.random(codes.size)
+    base = np.where(r < rate, rng.integers(0, 4, codes.size), codes).astype(np.uint8)
+    counts = np.where(r < 2 * rate, np.where(r < rate, 1, 2), np.where(r < 3 * rate, 0, 1))
+    out = np.repeat(base, counts)
+    out[np.cumsum(counts)[counts == 2] - 1] = rng.integers(0, 4, int((counts == 2).sum()))
+    return out
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -152,7 +170,8 @@ def main() -> int:
     from genomeassembler_dev_tpu_torch.ops.histogram import (
         count_kmers_batched, count_kmers_batched_plain)
     from genomeassembler_dev_tpu_torch.ops.ks import batched_ks_2samp_masked
-    from genomeassembler_dev_tpu_torch.ops.prefix_min import batched_levenshtein_prefix_min
+    from genomeassembler_dev_tpu_torch.ops.prefix_min import (
+        MAX_WIDTH as PREFIX_MIN_WIDTH, batched_levenshtein_prefix_min)
     from genomeassembler_dev_tpu_torch.ops.windows import kmer_window_codes
     from genomeassembler_dev_tpu_torch.pipeline import results as res_io
     from genomeassembler_dev_tpu_torch.pipeline.assembler import (
@@ -187,9 +206,14 @@ def main() -> int:
     print(f"[2] built {len(libs)} kernels in {time.perf_counter() - t0:.2f} s")
     for so in libs:
         with open(so + ".log") as f:
+            fn = ""
             for line in f:
-                if "registers" in line or "spill" in line:
-                    print(f"[2] {os.path.basename(so)} ptxas: {line.strip()}")
+                m = re.search(r"entry function '\w*?\d([a-z_]+_kernel)(I(?:Li\d+E)+E)?", line)
+                if m:
+                    args = re.findall(r"Li(\d+)E", m.group(2) or "")
+                    fn = m.group(1) + (f"<{', '.join(args)}>" if args else "")
+                elif "registers" in line or "spill" in line:
+                    print(f"[2] {os.path.basename(so)} {fn} ptxas: {line.strip()}")
 
     # -- phase 3: Myers kernel vs plain DP on the card ------------------------
     def to_dev(queries, target):
@@ -216,6 +240,17 @@ def main() -> int:
     rng = np.random.default_rng(1)
     target = rand_dna(rng, 150)
     cases["multiword+empty"] = ([rand_dna(rng, 200), target + "ACGT" * 10, ""], target)
+    # the strip, warp and band edges of the kernel's launch plan, against a
+    # short target so that the plain DP stays fast: each length alone, then
+    # all in one launch (the longest query sets the plan), then two bands
+    rng = np.random.default_rng(4)
+    target = rand_dna(rng, 300)
+    edge = {n: mutate(rng, (target * (n // 300 + 1))[:n], 0.02)[:n] for n in EDGE_LENGTHS}
+    for n, q in edge.items():
+        cases[f"length {n}"] = ([q], target)
+    cases["mixed 0..50048"] = ([""] + list(edge.values()), target)
+    cases["two bands 140000"] = ([mutate(rng, (target * 467)[:140000], 0.02)[:140000],
+                                  edge[33], ""], target)
     for name, (queries, target) in cases.items():
         for mode in ("NW", "HW"):
             compare(name, to_dev(queries, target), mode)
@@ -251,6 +286,8 @@ def main() -> int:
     # -- phase 3b: prefix-min kernel vs the same plain results and Myers ------
     rec = record["prefix_min_levenshtein"]
     for name, args, mode, want, k1 in lev_cases:
+        if args[0].shape[1] > PREFIX_MIN_WIDTH:
+            continue  # K3 takes at most 16,384 columns
         got = batched_levenshtein_prefix_min(*args, mode=mode)
         torch.cuda.synchronize()
         rec["max_abs_err"] = max(rec["max_abs_err"], max_err(got, want))
@@ -604,6 +641,33 @@ def main() -> int:
           f"plain DP {vp_ms:.3f} ms, plain DP on the real row [1, 50000] {vr_ms:.3f} ms")
     record["myers_levenshtein"].update(velvet_ms=vk_ms, velvet_plain_ms=vp_ms,
                                        velvet_row_plain_ms=vr_ms)
+
+    # a repeat-heavy velvet ensemble: 256 mutated ~2x copies of the segment,
+    # HW against it; K1 on all rows, the plain DP on rows 0-3 alone
+    rng = np.random.default_rng(6)
+    doubled = np.tile(encode_dna(segment), 2)
+    reps = [mutate_codes(rng, doubled, 0.003) for _ in range(256)]
+    mat = np.zeros((256, -(-max(map(len, reps)) // 128) * 128), np.uint8)
+    for i, r in enumerate(reps):
+        mat[i, : len(r)] = r
+    rargs = (torch.from_numpy(mat).to(dev),
+             torch.tensor([len(r) for r in reps], dtype=torch.int32, device=dev), target)
+    outs = []
+    rk_ms = cuda_ms(lambda: outs.append(myers.batched_levenshtein_myers(*rargs, mode="HW")), 1)
+    t0 = time.time()
+    want = batched_levenshtein(rargs[0][:4].contiguous(), rargs[1][:4].contiguous(), target,
+                               "HW")
+    torch.cuda.synchronize()
+    rp_s = time.time() - t0
+    got = outs[0][:4]
+    rec = record["myers_levenshtein"]
+    rec["max_abs_err"] = max(rec["max_abs_err"], max_err(got, want))
+    check(torch.equal(got, want), "repeat-heavy shape: kernel != plain DP on rows 0-3")
+    check(bool((outs[0] >= rargs[1] - VELVET_LEN).all()), "repeat-heavy shape: distances")
+    print(f"[8] repeat-heavy shape {tuple(mat.shape)} x {VELVET_LEN} HW: kernel "
+          f"{rk_ms:.3f} ms for 256 rows; rows 0-3 {got.tolist()} equal to the plain DP "
+          f"({rp_s:.1f} s on those rows)")
+    rec["repeat_heavy_ms"] = rk_ms
 
     # -- phase 9: the biased traversal, cli study-own --traversal biased ------
     shutil.rmtree(BIASED_DIR, ignore_errors=True)

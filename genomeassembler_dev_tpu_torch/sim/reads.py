@@ -49,10 +49,15 @@ def reads_from_uniforms(u: torch.Tensor, genome_codes: torch.Tensor,
     """Breakpoints from uniforms u in [0, 1) by inverse CDF, then the reads.
 
     searchsorted is right-sided, so a uniform that lands exactly on a CDF
-    step picks the next position, as jnp.searchsorted(side="right") does."""
+    step picks the next position, as jnp.searchsorted(side="right") does.
+    The CDF is summed in float64. The octamer table's smallest probability
+    is above 2^-22, so every float32 track entry is a multiple of 2^-45, and
+    below 2^8 (segments up to ~2.5 Mb) every float64 partial sum is exact:
+    the CDF is the same in any summation order. A float32 cumsum on CUDA is
+    not, and moved a few steps between runs of one seed."""
     L = genome_codes.shape[0]
-    cdf = torch.cumsum(track, dim=0)
-    pos = torch.searchsorted(cdf, u * cdf[-1], right=True).to(torch.int32)
+    cdf = torch.cumsum(track.to(torch.float64), dim=0)
+    pos = torch.searchsorted(cdf, u.to(torch.float64) * cdf[-1], right=True).to(torch.int32)
     pos = torch.clamp(pos, max=track.shape[0] - 1)
     valid = pos + read_len <= L  # 3' boundary discard
     offs = torch.arange(read_len, dtype=torch.int32, device=u.device)

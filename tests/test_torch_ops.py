@@ -2,6 +2,8 @@
 k-mer histograms and Levenshtein, on identical numpy-made inputs. Integer outputs must agree
 exactly; float outputs within rtol 2e-5 (the JAX float32 tolerance)."""
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -33,7 +35,8 @@ from genomeassembler_dev_tpu_torch.ops import windows as twin  # noqa: E402
 from genomeassembler_dev_tpu_torch.ops.edit_distance import (  # noqa: E402
     batched_levenshtein as t_lev, batched_levenshtein_auto as t_lev_auto)
 from genomeassembler_dev_tpu_torch.ops.match import find_first_match as t_match  # noqa: E402
-from genomeassembler_dev_tpu_torch.ops.myers import batched_levenshtein_myers  # noqa: E402
+from genomeassembler_dev_tpu_torch.ops.myers import (  # noqa: E402
+    MAX_LANES, PEQ_CODES, batched_levenshtein_myers, launch_plan)
 from genomeassembler_dev_tpu_torch.ops.prefix_min import (  # noqa: E402
     batched_levenshtein_prefix_min)
 from genomeassembler_dev_tpu_torch.score.breakscore import breakscore as t_breakscore  # noqa: E402
@@ -275,3 +278,156 @@ class TestLevenshtein:
         with pytest.raises(ValueError):
             wrapper(q, torch.tensor([4], dtype=torch.int32),
                     torch.zeros(3, dtype=torch.uint8, device="meta"))
+
+
+# query lengths at csrc/myers.cu's strip, warp and band edges
+EDGE_LENGTHS = (0, 1, 31, 32, 33, 63, 64, 65, 1024, 1025, 8192, 8193, 16385, 50048)
+
+
+def edge_case():
+    """One batch that mixes the empty query, short ones and a 50 kb one, each
+    a mutated run of copies of a 300-base target."""
+    rng = np.random.default_rng(4)
+    target = rand_dna(rng, 300)
+    queries = []
+    for n in EDGE_LENGTHS:
+        s = list((target * (n // 300 + 1))[:n])
+        for p in rng.integers(0, max(n, 1), n // 20):
+            s[p] = "ACGT"[int(rng.integers(4))]
+        queries.append("".join(s))
+    return queries, target
+
+
+def wavefront_myers(qmat, qlens, target, mode, S, lanes):
+    """numpy model of csrc/myers.cu's schedule, one query at a time: a query's
+    words cut into strips of S per lane; at step s word o (lane o // S, slot
+    o % S) advances by character s - o, taking hin from word o-1's hout of
+    step s-1: the slot before in the same lane, else the previous lane's last
+    slot (a shuffle inside a warp, the parity mailbox from the warp before);
+    queries wider than lanes x S words in bands, handing hout over through
+    one row."""
+    N, M = len(target), qmat.shape[1]
+    hin0 = 0 if mode == "HW" else 1
+    band_words = lanes * S
+    bits = np.uint32(1) << np.arange(32, dtype=np.uint32)
+    tcodes = np.minimum(np.asarray(target, np.int64), 4)  # codes >= 4 match nothing
+    out = []
+    for row, qlen in zip(qmat, qlens):
+        qlen = min(max(int(qlen), 0), M)
+        if qlen == 0:
+            out.append(0 if mode == "HW" else N)
+            continue
+        nw = (qlen - 1) // 32 + 1
+        nbands = -(-nw // band_words)
+        codes = np.full(nbands * band_words * 32, 4, np.int64)
+        codes[:qlen] = row[:qlen]
+        bstar = (qlen - 1) & 31
+        hbuf = np.zeros(N, np.int64)
+        score = best = qlen
+        for band in range(nbands):
+            w0 = band * band_words
+            used = -(-min(band_words, nw - w0) // S)
+            last = band == nbands - 1
+            lane = np.arange(used)
+            offset = lane[:, None] * S + np.arange(S)  # [used, S]: word within the band
+            cw = codes[(w0 + offset)[..., None] * 32 + np.arange(32)]
+            peq = np.stack([((cw == c) * bits).sum(-1, dtype=np.uint32) for c in range(4)]
+                           + [np.zeros((used, S), np.uint32)])  # code 4: no match
+            vp = np.full((used, S), 0xFFFFFFFF, np.uint32)
+            vn = np.zeros((used, S), np.uint32)
+            hout = np.zeros((used, S), np.int64)  # +1, 0 or -1
+            warp, wl = lane // 32, lane % 32
+            mailbox = np.zeros((2, -(-used // 32)), np.int64)
+            sw = nw - 1 - w0
+            owner, kq = divmod(sw, S)
+            for s in range(N + used * S - 1):
+                i = s - offset
+                ok = (i >= 0) & (i < N)
+                tc = np.where(ok, tcodes[np.clip(i, 0, max(N - 1, 0))], 4)
+                up = np.concatenate([[0], hout[:-1, S - 1]])
+                up = np.where(wl == 0, mailbox[(s + 1) & 1][np.maximum(warp - 1, 0)], up)
+                up[0] = hin0 if band == 0 else hbuf[min(s, N - 1)]
+                hin = np.concatenate([up[:, None], hout[:, :-1]], axis=1)
+                eq = peq[tc, lane[:, None], np.arange(S)]
+                hneg = (hin < 0).astype(np.uint32)
+                hpos = (hin > 0).astype(np.uint32)
+                xv = eq | vn
+                eq = eq | hneg
+                xh = (((eq & vp) + vp) ^ vp) | eq
+                ph = vn | ~(xh | vp)
+                mh = vp & xh
+                if last and ok[owner, kq]:
+                    score += int((ph[owner, kq] >> bstar) & 1) - int((mh[owner, kq] >> bstar) & 1)
+                    best = min(best, score)
+                hnew = (ph >> 31).astype(np.int64) - (mh >> 31).astype(np.int64)
+                ph = (ph << 1) | hpos
+                mh = (mh << 1) | hneg
+                vp, vn = np.where(ok, mh | ~(xv | ph), vp), np.where(ok, ph & xv, vn)
+                hout = np.where(ok, hnew, hout)
+                if not last and ok[used - 1, S - 1]:
+                    hbuf[i[used - 1, S - 1]] = hout[used - 1, S - 1]
+                tails = np.arange(31, used, 32)  # lane 31 of each warp posts
+                mailbox[s & 1][tails // 32] = hout[tails, S - 1]
+        out.append(best if mode == "HW" else score)
+    return np.array(out, np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _levenshtein_references(case, mode):
+    """(qmat, qlen, target codes, JAX Pallas kernel in interpret mode, plain
+    DP, spec) for one case and mode."""
+    queries, target = edge_case() if case == "edges" else pallas_test_cases()[case]
+    qmat, qlen = pack(queries, pad=0)
+    tgt = encode_dna(target)
+    jargs = (jnp.asarray(qmat), jnp.asarray(qlen), jnp.asarray(tgt))
+    jax_k = np.asarray(j_myers(*jargs, mode=mode, block_b=128, interpret=True))
+    plain = t_lev(torch.from_numpy(qmat), torch.from_numpy(qlen), torch.from_numpy(tgt),
+                  mode=mode).numpy()
+    want = np.array([spec.levenshtein(q, target, mode=mode) for q in queries], np.int32)
+    return qmat, qlen, tgt, jax_k, plain, want
+
+
+class TestMyersWavefront:
+    """csrc/myers.cu cannot run here: its launch plan and its schedule are
+    held against the JAX package on the CPU."""
+
+    @pytest.mark.parametrize("B,M", [
+        (512, 2048), (37, 1152), (256, 2000),  # own and biased: solutions to 2 kb
+        (256, 2048),  # K1's 256 x 2048 x 50 kb HW case
+        (64, 50048), (1, 50000), (256, 100096), (256, 102400),  # velvet, repeat-heavy
+        *((14, n) for n in EDGE_LENGTHS if n), (1, 131072), (1, 131073), (2, 1_000_000)])
+    def test_launch_plan(self, B, M):
+        # B is the path's batch: the kernel runs one block a query, so the
+        # plan depends on the width alone and B blocks never reach a limit
+        assert B <= 2**31 - 1
+        W = max(1, -(-M // 32))
+        plan = launch_plan(W)
+        S = plan.words_per_lane
+        assert S in MAX_LANES and plan.lanes % 32 == 0
+        assert plan.lanes <= MAX_LANES[S] <= 1024
+        # S words of VP/VN and two hout bits a lane, ~30 registers besides
+        assert 4 * S + 30 <= min(255, 65536 // MAX_LANES[S])
+        # a two-slot mailbox per warp, then [S][PEQ_CODES][lanes] Peq words
+        assert plan.shared_bytes == 4 * (2 * (plan.lanes // 32)
+                                         + S * PEQ_CODES * plan.lanes) <= 227 * 1024
+        bands = -(-W // plan.band_words)
+        assert bands * plan.band_words >= W  # every word has a lane
+        assert plan.lanes <= 32 * -(-W // (32 * S))  # no warp without words
+        if W <= 128:  # a warp a query, no barrier, one band
+            assert plan.lanes == 32 and bands == 1 and S == min(s for s in (1, 2, 4)
+                                                                if W <= 32 * s)
+        assert bands == 1 or plan.lanes == MAX_LANES[S]  # bands only at full width
+
+    @pytest.mark.parametrize("mode", ["NW", "HW"])
+    @pytest.mark.parametrize("case", [0, 1, "edges"])
+    @pytest.mark.parametrize("S,lanes", [(1, 64), (2, 96), (4, 64), (8, 32),
+                                         ("plan", None)])
+    def test_schedule_vs_jax_plain_and_spec(self, S, lanes, case, mode):
+        qmat, qlen, tgt, jax_k, plain, want = _levenshtein_references(case, mode)
+        if S == "plan":
+            plan = launch_plan(max(1, -(-qmat.shape[1] // 32)))
+            S, lanes = plan.words_per_lane, plan.lanes
+        got = wavefront_myers(qmat, qlen, tgt, mode, S, lanes)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(jax_k, want)
+        np.testing.assert_array_equal(plain, want)

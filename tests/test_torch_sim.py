@@ -75,8 +75,9 @@ def test_positions_from_identical_uniforms(tables, read_len):
     track = treads.probability_track(torch.from_numpy(codes), t.probs[8], 8)
     ts = treads.reads_from_uniforms(torch.from_numpy(u), torch.from_numpy(codes), track,
                                     read_len)
-    # float32 cumsums in another order move a CDF step by a few ulps: only a
-    # uniform within 1e-5 * total of a step may pick a neighbouring position
+    # JAX's float32 cumsum moves a CDF step by a few ulps from the port's
+    # exact float64 one: only a uniform within 1e-5 * total of a step may pick
+    # a neighbouring position
     cdf = np.cumsum(track.numpy().astype(np.float64))
     x = u.astype(np.float64) * cdf[-1]
     step = np.searchsorted(cdf, x)
@@ -89,6 +90,28 @@ def test_positions_from_identical_uniforms(tables, read_len):
     np.testing.assert_array_equal(ts.valid.numpy()[same], np.asarray(js.valid)[same])
     np.testing.assert_array_equal(ts.codes.numpy()[same], np.asarray(js.codes)[same])
     assert not ts.valid.numpy().all()  # the 3' discard fired
+
+
+def test_cdf_is_the_same_in_any_summation_order(tables):
+    """At the velvet study's 50 kb, the float64 CDF of reads_from_uniforms
+    does not depend on the order of the sums (a CUDA scan sums in blocks):
+    a blocked, reversed-block sum gives the same steps and positions."""
+    _, t = tables
+    codes = torch.from_numpy(tenc.encode_dna(t_genome(1234, 50000)))
+    track = treads.probability_track(codes, t.probs[8], 8).to(torch.float64)
+    cdf = torch.cumsum(track, dim=0)
+    n = track.shape[0]
+    blocks = torch.cat([track, track.new_zeros(-n % 400)]).reshape(-1, 400)
+    inner = torch.cumsum(blocks.flip(1), dim=1).flip(1)  # suffix sums in a block
+    totals = inner[:, 0]
+    offsets = torch.cat([torch.zeros(1, dtype=torch.float64),
+                         torch.cumsum(totals, dim=0)[:-1]])
+    blocked = (offsets[:, None] + totals[:, None] - inner + blocks).reshape(-1)[:n]
+    assert torch.equal(blocked, cdf)
+    u = torch.from_numpy(np.random.default_rng(0).random(20000).astype(np.float32))
+    pos = treads.reads_from_uniforms(u, codes, track.to(torch.float32), 12).positions
+    want = torch.searchsorted(blocked, u.to(torch.float64) * blocked[-1], right=True)
+    assert torch.equal(pos.long(), want.clamp(max=n - 1))
 
 
 def test_generator_simulation_is_seeded(tables):
