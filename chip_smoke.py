@@ -9,9 +9,11 @@ NVIDIA GPU.
       cases, on queries at the edges of its launch plan (strips, warps,
       bands; alone and mixed in one launch) and at the study shapes, and
       [3b] the prefix-min kernel against the same plain results and the
-      Myers kernel wherever it takes the width;
+      Myers kernel at every width;
   [3c] holds the histogram kernel against its plain version and the native
-      C++ k-mer counter;
+      C++ k-mer counter (k 2 to 9, int64 codes out of range, the parts'
+      edges, the count study's four shapes) and times it beside
+      torch.bincount;
   [4] replays the golden fixtures own_k9_rl12, own_k13_rl16 and own_k15_rl20;
   [5] drives eight own-dBG experiments at the study shape through
       Assembler.run_experiment and checks them against the native engine;
@@ -25,7 +27,8 @@ NVIDIA GPU.
       every experiment against the segment, the native engine, the CPU KS
       and the plain DP, times the Myers kernel and the plain DP at the
       velvet path's real shape, and the kernel on a repeat-heavy ensemble
-      (256 mutated 2x copies of the segment, rows 0-3 against the plain DP);
+      (256 mutated 2x copies of the segment, rows 0-3 against the plain DP),
+      with the prefix-min kernel equal to it on every row of both;
   [9] runs `cli study-own --traversal biased` on 1 kb segments with planted
       repeats (rows 12:9, 16:13, 25:15) and checks every experiment against
       a host string-level greedy walk, the port's CPU run, the native engine,
@@ -36,12 +39,17 @@ NVIDIA GPU.
 Needs a CUDA card, nvcc for sm_90a and a C++ compiler for native/. Every
 check raises on a mismatch, so any failure exits non-zero. The last line is
 {"ok": true, "device": {...}}; the line before it is nvidia-smi's name and
-power limit, and the one before that the kernel record.
+power limit, and the one before that the kernel record. Each kernel's
+bound_ms there is the least time the card could take for the work of the
+timed call: bytes over the memory rate for the histogram, operations over
+the card's issue rate for the Levenshtein kernels (HBM_BYTES_PER_MS,
+OPS_PER_MS, CELL_OPS, WORD_STEP_OPS).
 """
 
 from __future__ import annotations
 
 import csv
+import ctypes
 import glob
 import json
 import os
@@ -73,6 +81,15 @@ KERNELS = {  # name in the record: (csrc name, TPU kernel it replaces)
                                "genomeassembler_dev_tpu/ops/pallas/edit_distance_kernel.py:32"),
 }
 RTOL = 2e-5  # float32 scores: the JAX package's float32 tolerance
+# the least time the card could take (NVIDIA H100 SXM data sheet; 700 W):
+HBM_BYTES_PER_MS = 3.35e9  # 3.35 TB/s of device memory
+# 132 SMs x 4 warp instructions of 32 lanes a cycle x 1.98 GHz: the most
+# scalar operations of any type the card issues, its 67 TFLOP/s of float32
+# with an FMA counted once. (64 integer lanes an SM, 16.7 T/s, is no bound:
+# the prefix-min kernel beat it at the repeat-heavy shape on an H100.)
+OPS_PER_MS = 132 * 128 * 1.98e6
+CELL_OPS = 5  # prefix-min: the compare, the substitution add, a three-way min (two DPX ops)
+WORD_STEP_OPS = 20  # Myers: Hyyro's step on one 32-bit word, as written in csrc/myers.cu
 # query lengths at the Myers kernel's strip, warp and band edges
 EDGE_LENGTHS = (1, 31, 32, 33, 63, 64, 65, 1024, 1025, 8192, 8193, 16385, 50048)
 
@@ -120,6 +137,59 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def captured(fn, calls: int) -> torch.cuda.CUDAGraph:
+    """`calls` calls of fn() captured as one CUDA graph, kept for inspection."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm: the library is loaded outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.instantiate()
+    return graph
+
+
+def graph_us(fn, calls: int = 50) -> float:
+    """Mean microseconds of fn() on the card, replayed as one CUDA graph: the
+    device's time without the host's launches."""
+    return 1e3 * cuda_ms(captured(fn, calls).replay, 10) / calls
+
+
+def graph_nodes(fn) -> list[int]:
+    """The node types (CUgraphNodeType: 0 a kernel, 2 a memset) of one fn()
+    call captured as a CUDA graph, read through the driver API."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    cuda.cuGraphGetNodes.restype = cuda.cuGraphNodeGetType.restype = ctypes.c_int
+    cuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.POINTER(ctypes.c_size_t)]
+    cuda.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    graph = captured(fn, 1)  # alive while its raw handle is read
+    raw = graph.raw_cuda_graph()
+    n = ctypes.c_size_t(0)
+    check(cuda.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0, "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cuda.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0, "cuGraphGetNodes")
+    types = []
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        check(cuda.cuGraphNodeGetType(node, ctypes.byref(t)) == 0, "cuGraphNodeGetType")
+        types.append(t.value)
+    return types
+
+
+def lev_bound_ms(lens: torch.Tensor, n: int, kind: str) -> float:
+    """Integer-operation bound of a Levenshtein call against an n-base
+    target: the cells (prefix-min) or 32-bit word steps (Myers) that the
+    queries' real lengths need, at OPS_PER_MS."""
+    lens = lens.long().clamp(min=0)
+    if kind == "cells":
+        return n * int(lens.sum()) * CELL_OPS / OPS_PER_MS
+    return n * int(((lens + 31) // 32).sum()) * WORD_STEP_OPS / OPS_PER_MS
 
 
 def max_err(got: torch.Tensor, want: torch.Tensor) -> int:
@@ -170,8 +240,7 @@ def main() -> int:
     from genomeassembler_dev_tpu_torch.ops.histogram import (
         count_kmers_batched, count_kmers_batched_plain)
     from genomeassembler_dev_tpu_torch.ops.ks import batched_ks_2samp_masked
-    from genomeassembler_dev_tpu_torch.ops.prefix_min import (
-        MAX_WIDTH as PREFIX_MIN_WIDTH, batched_levenshtein_prefix_min)
+    from genomeassembler_dev_tpu_torch.ops.prefix_min import batched_levenshtein_prefix_min
     from genomeassembler_dev_tpu_torch.ops.windows import kmer_window_codes
     from genomeassembler_dev_tpu_torch.pipeline import results as res_io
     from genomeassembler_dev_tpu_torch.pipeline.assembler import (
@@ -208,9 +277,11 @@ def main() -> int:
         with open(so + ".log") as f:
             fn = ""
             for line in f:
-                m = re.search(r"entry function '\w*?\d([a-z_]+_kernel)(I(?:Li\d+E)+E)?", line)
-                if m:
-                    args = re.findall(r"Li(\d+)E", m.group(2) or "")
+                m = re.search(r"entry function '\w*?\d([a-z_]+_kernel)(I(?:Li\d+E|[il])+E)?",
+                              line)
+                if m:  # template arguments: integers, or int32 / int64 codes
+                    args = [a or {"i": "int32", "l": "int64"}[t]
+                            for a, t in re.findall(r"Li(\d+)E|([il])E", m.group(2) or "")]
                     fn = m.group(1) + (f"<{', '.join(args)}>" if args else "")
                 elif "registers" in line or "spill" in line:
                     print(f"[2] {os.path.basename(so)} {fn} ptxas: {line.strip()}")
@@ -270,8 +341,13 @@ def main() -> int:
         compare("slice 512x2048x1000", slice_args, mode)
     k_ms = cuda_ms(lambda: myers.batched_levenshtein_myers(*slice_args, mode="NW"), 20)
     p_ms = cuda_ms(lambda: batched_levenshtein(*slice_args, mode="NW"), 3)
-    print(f"[3] slice 512x2048x1000 NW: kernel {k_ms:.3f} ms, plain DP {p_ms:.3f} ms")
-    record["myers_levenshtein"].update(ms=k_ms, plain_ms=p_ms)
+    slice_lens, slice_n = slice_args[1], slice_args[2].shape[0]
+    k_bound = lev_bound_ms(slice_lens, slice_n, "words")
+    print(f"[3] slice 512x2048x1000 NW: kernel {k_ms:.3f} ms, plain DP {p_ms:.3f} ms, "
+          f"bound {k_bound:.4f} ms")
+    # no PyTorch call computes an edit distance: library_ms stays null
+    record["myers_levenshtein"].update(ms=k_ms, plain_ms=p_ms, bound_ms=k_bound,
+                                       bound_by="operations", library_ms=None)
 
     # a plain HW shape: 256 x 2048 queries against a 50 kb target
     rng = np.random.default_rng(3)
@@ -281,26 +357,29 @@ def main() -> int:
     compare("HW 256x2048x50000", hw_args, "HW")
     hk_ms = cuda_ms(lambda: myers.batched_levenshtein_myers(*hw_args, mode="HW"), 3)
     hp_ms = cuda_ms(lambda: batched_levenshtein(*hw_args, mode="HW"), 1)
-    print(f"[3] HW 256x2048x50000: kernel {hk_ms:.3f} ms, plain DP {hp_ms:.3f} ms")
+    print(f"[3] HW 256x2048x50000: kernel {hk_ms:.3f} ms, plain DP {hp_ms:.3f} ms, bound "
+          f"{lev_bound_ms(hw_args[1], 50000, 'words'):.4f} ms")
 
     # -- phase 3b: prefix-min kernel vs the same plain results and Myers ------
     rec = record["prefix_min_levenshtein"]
     for name, args, mode, want, k1 in lev_cases:
-        if args[0].shape[1] > PREFIX_MIN_WIDTH:
-            continue  # K3 takes at most 16,384 columns
         got = batched_levenshtein_prefix_min(*args, mode=mode)
         torch.cuda.synchronize()
         rec["max_abs_err"] = max(rec["max_abs_err"], max_err(got, want))
         check(torch.equal(got, want), f"{name} {mode}: prefix-min kernel != plain DP")
         check(torch.equal(got, k1), f"{name} {mode}: prefix-min kernel != Myers kernel")
-        print(f"[3b] {name} {mode}: {got.numel()} distances equal to plain DP and Myers")
+        print(f"[3b] {name} {mode}: {got.numel()} distances equal to plain DP and Myers "
+              f"(width {args[0].shape[1]})")
     m_ms = cuda_ms(lambda: batched_levenshtein_prefix_min(*slice_args, mode="NW"), 20)
+    m_bound = lev_bound_ms(slice_lens, slice_n, "cells")
     print(f"[3b] slice 512x2048x1000 NW: kernel {m_ms:.3f} ms, Myers {k_ms:.3f} ms, "
-          f"plain DP {p_ms:.3f} ms")
+          f"plain DP {p_ms:.3f} ms, bound {m_bound:.4f} ms")
     mh_ms = cuda_ms(lambda: batched_levenshtein_prefix_min(*hw_args, mode="HW"), 3)
+    mh_bound = lev_bound_ms(hw_args[1], 50000, "cells")
     print(f"[3b] HW 256x2048x50000: kernel {mh_ms:.3f} ms, Myers {hk_ms:.3f} ms, "
-          f"plain DP {hp_ms:.3f} ms")
-    rec.update(ms=m_ms, plain_ms=p_ms)
+          f"plain DP {hp_ms:.3f} ms, bound {mh_bound:.4f} ms")
+    rec.update(ms=m_ms, plain_ms=p_ms, bound_ms=m_bound, bound_by="operations",
+               library_ms=None, hw_ms=mh_ms, hw_bound_ms=mh_bound)
 
     # -- phase 3c: histogram kernel vs plain and the native counter -----------
     rec = record["kmer_histogram"]
@@ -317,7 +396,7 @@ def main() -> int:
         print(f"[3c] {name}: {got.shape[0]} x {bins} counts equal"
               + (" (and to the native counter)" if native_counts is not None else ""))
 
-    for k in (4, 8, 9):  # the cases of tests/test_pallas_kernels.py
+    for k in (2, 4, 6, 8, 9):  # the cases of tests/test_pallas_kernels.py, and k 2, 6
         rng = np.random.default_rng(k)
         codes = torch.from_numpy(rng.integers(0, 4**k, (2, 700)).astype(np.int32)).to(dev)
         valid = torch.from_numpy(rng.random((2, 700)) < 0.9).to(dev)
@@ -327,6 +406,20 @@ def main() -> int:
         hist_case(f"k {k} one bin (contention)", torch.full((1, 70000), 4**k - 1,
                                                             dtype=torch.int64, device=dev),
                   torch.ones((1, 70000), dtype=torch.bool, device=dev), 4**k)
+        # int64 codes, every 7th out of range (the kernel drops them as it reads)
+        wide = rng.integers(0, 4**k, (3, 4099))
+        wide[:, ::7] = rng.choice([-1, -2**40, 4**k, 2**40], wide[:, ::7].shape)
+        hist_case(f"k {k} int64 codes out of range", torch.from_numpy(wide).to(dev),
+                  torch.from_numpy(rng.random(wide.shape) < 0.9).to(dev), 4**k)
+        # a part holds at most 65,532 entries: one part, then two, at one bin
+        # (a counter at its most) and at random codes
+        for n in (65532, 65533, 65535, 65536):
+            hist_case(f"k {k} one bin, N {n}", torch.full((2, n), 4**k - 1 - (n & 1),
+                                                          dtype=torch.int32, device=dev),
+                      torch.ones((2, n), dtype=torch.bool, device=dev), 4**k)
+            hist_case(f"k {k} random, N {n}", torch.from_numpy(
+                rng.integers(0, 4**k, (2, n)).astype(np.int32)).to(dev),
+                torch.ones((2, n), dtype=torch.bool, device=dev), 4**k)
     # the TPU kernel's measurement shape: 256 segments of 3,333 reads of 12
     # bases, 5 octamer windows each; every row also against the native counter
     rng = np.random.default_rng(8)
@@ -335,13 +428,46 @@ def main() -> int:
     codes, valid = kmer_window_codes(torch.from_numpy(reads).to(dev), 8)
     codes, valid = codes.reshape(256, -1), valid.reshape(256, -1)
     check(codes.shape == (256, 16665), f"histogram shape {tuple(codes.shape)}")
-    native_rows = np.stack([native.count_kmers_native(
-        ["".join("ACGTN"[min(c, 4)] for c in r) for r in seg], 8) for seg in reads])
+    read_strs = [["".join("ACGTN"[min(c, 4)] for c in r) for r in seg] for seg in reads]
+    native_rows = np.stack([native.count_kmers_native(seg, 8) for seg in read_strs])
     hist_case("B 256 x N 16665, k 8", codes, valid, 4**8, native_rows)
-    h_ms = cuda_ms(lambda: count_kmers_batched(codes, valid, 4**8), 20)
+    # the library call for the same function: one bincount of row * bins +
+    # code, its flat index prepared outside the timed call
+    flat = (torch.arange(256, device=dev)[:, None] * 4**8 + codes.long())[valid]
+    h_ms = cuda_ms(lambda: count_kmers_batched(codes, valid, 4**8), 50)
+    hb_ms = cuda_ms(lambda: torch.bincount(flat, minlength=256 * 4**8), 50)
     hp_ms2 = cuda_ms(lambda: count_kmers_batched_plain(codes, valid, 4**8), 20)
-    print(f"[3c] B 256 x N 16665, k 8: kernel {h_ms:.3f} ms, plain {hp_ms2:.3f} ms")
-    rec.update(ms=h_ms, plain_ms=hp_ms2)
+    h_dev = 1e-3 * graph_us(lambda: count_kmers_batched(codes, valid, 4**8))
+    h_bound = (codes.numel() * (codes.element_size() + 1) + 256 * 4**8 * 4) / HBM_BYTES_PER_MS
+    print(f"[3c] B 256 x N 16665, k 8: kernel {h_ms:.4f} ms, torch.bincount {hb_ms:.4f} ms "
+          f"(it syncs), plain {hp_ms2:.3f} ms (CUDA events over calls); kernel {h_dev:.4f} ms "
+          f"as a CUDA graph; bound {h_bound:.4f} ms (bytes)")
+    rec.update(ms=h_dev, host_loop_ms=h_ms, plain_ms=hp_ms2, bound_ms=h_bound, bound_by="bytes",
+               library_ms=hb_ms)
+    # the count study's four calls under study-all: one segment's 3,333 reads
+    # of 12 bases, all windows in one row (B 1), as Assembler.count_only
+    # passes them; each call is one kernel launch and nothing else
+    count_us = {}
+    for k in (2, 4, 6, 8):
+        kc, kv = kmer_window_codes(torch.from_numpy(reads[0]).to(dev), k)
+        kc, kv = kc.reshape(1, -1), kv.reshape(1, -1)
+        hist_case(f"count study k {k}, B 1 x N {kc.shape[1]}", kc, kv, 4**k,
+                  native.count_kmers_native(read_strs[0], k)[None])
+        nodes = graph_nodes(lambda: count_kmers_batched(kc, kv, 4**k))
+        check(nodes == [0], f"count study k {k}: one call ran graph nodes {nodes}, not one kernel")
+        kflat = kc.long()[kv]
+        c = count_us[k] = {
+            "N": kc.shape[1],
+            "us": graph_us(lambda: count_kmers_batched(kc, kv, 4**k)),
+            "bound_us": 1e3 * (kc.numel() * 5 + 4**k * 4) / HBM_BYTES_PER_MS,
+            "host_loop_us": 1e3 * cuda_ms(lambda: count_kmers_batched(kc, kv, 4**k), 100),
+            "bincount_host_loop_us": 1e3 * cuda_ms(
+                lambda: torch.bincount(kflat, minlength=4**k), 100)}
+        print(f"[3c] count study k {k}, B 1 x N {kc.shape[1]}: one kernel a call (graph "
+              f"nodes {nodes}); kernel {c['us']:.2f} us as a CUDA graph, a call from the host "
+              f"{c['host_loop_us']:.2f} us, torch.bincount {c['bincount_host_loop_us']:.2f} us; "
+              f"bound {c['bound_us']:.3f} us (bytes)")
+    rec["count_study"] = count_us
 
     # -- phase 4: the golden fixtures -----------------------------------------
     for path in FIXTURES:
@@ -455,6 +581,7 @@ def main() -> int:
     segs = synthetic_segment_store(base.seed, base.seq_len, STUDY_ITERS)
     n_solutions = 0
     last_write = t0
+    own_checks = []  # each row's first K3 check: (row, args)
     for read_len, dbg_kmer in ExperimentConfig.OWN_STUDY_GRID:
         cfg = base.with_(read_len=read_len, dbg_kmer=dbg_kmer)
         asm = Assembler(cfg, dev)
@@ -495,6 +622,7 @@ def main() -> int:
                 plain = batched_levenshtein(*args, mode="NW").cpu().numpy()
                 check(np.array_equal(cols["lev_dist_vs_true"], plain),
                       f"{what}: lev_dist_vs_true != plain DP")
+                own_checks.append((f"{read_len}:{dbg_kmer}", args))
         secs = row_end - last_write
         last_write = row_end
         print(f"[6] row {read_len}:{dbg_kmer}: {STUDY_ITERS} experiments agree with the "
@@ -504,6 +632,18 @@ def main() -> int:
                   f"{name} {1e3 * t / STUDY_ITERS:.2f}" for name, t in stage_sum.items()))
     record["prefix_min_levenshtein"]["launches"] = batched_levenshtein_prefix_min.launches
     check(batched_levenshtein_prefix_min.launches > 0, "prefix-min checked nothing")
+    # K3 and K1 at the own checks' real shapes (after the launch count)
+    own_ms = {}
+    for row, args in own_checks:
+        own_ms[row] = {
+            "shape": [*args[0].shape, args[2].shape[0]],
+            "ms": cuda_ms(lambda: batched_levenshtein_prefix_min(*args, mode="NW"), 20),
+            "myers_ms": cuda_ms(lambda: myers.batched_levenshtein_myers(*args, mode="NW"), 20),
+            "bound_ms": lev_bound_ms(args[1], args[2].shape[0], "cells")}
+        print(f"[6] K3 at the row {row} check {own_ms[row]['shape']} NW: "
+              f"{own_ms[row]['ms']:.4f} ms (Myers {own_ms[row]['myers_ms']:.4f} ms), "
+              f"bound {own_ms[row]['bound_ms']:.4f} ms")
+    record["prefix_min_levenshtein"]["own_checks"] = own_ms
 
     out_dir = os.path.join(STUDY_DIR, "IndustryModel_False")
     n_exp = len(ExperimentConfig.OWN_STUDY_GRID) * STUDY_ITERS
@@ -640,7 +780,19 @@ def main() -> int:
     print(f"[8] velvet shape 64x50048 (1 real row) x 50000 HW: kernel {vk_ms:.3f} ms, "
           f"plain DP {vp_ms:.3f} ms, plain DP on the real row [1, 50000] {vr_ms:.3f} ms")
     record["myers_levenshtein"].update(velvet_ms=vk_ms, velvet_plain_ms=vp_ms,
-                                       velvet_row_plain_ms=vr_ms)
+                                       velvet_row_plain_ms=vr_ms,
+                                       velvet_bound_ms=lev_bound_ms(vargs[1], VELVET_LEN, "words"))
+    k3_out = []
+    v3_ms = cuda_ms(lambda: k3_out.append(batched_levenshtein_prefix_min(*vargs, mode="HW")), 1)
+    torch.cuda.synchronize()
+    rec = record["prefix_min_levenshtein"]
+    rec["max_abs_err"] = max(rec["max_abs_err"], max_err(k3_out[0], outs["kernel"][0]))
+    check(torch.equal(k3_out[0], outs["kernel"][0]), "velvet shape: prefix-min != Myers")
+    rec.update(velvet_ms=v3_ms, velvet_bound_ms=lev_bound_ms(vargs[1], VELVET_LEN, "cells"))
+    print(f"[8] velvet shape: prefix-min kernel {v3_ms:.3f} ms, equal to Myers on all 64 "
+          f"rows; bounds {rec['velvet_bound_ms']:.3f} ms (Myers "
+          f"{record['myers_levenshtein']['velvet_bound_ms']:.4f} ms), 132 times that on the "
+          "one SM that runs the one real row")
 
     # a repeat-heavy velvet ensemble: 256 mutated ~2x copies of the segment,
     # HW against it; K1 on all rows, the plain DP on rows 0-3 alone
@@ -668,6 +820,17 @@ def main() -> int:
           f"{rk_ms:.3f} ms for 256 rows; rows 0-3 {got.tolist()} equal to the plain DP "
           f"({rp_s:.1f} s on those rows)")
     rec["repeat_heavy_ms"] = rk_ms
+    k3_out = []
+    r3_ms = cuda_ms(lambda: k3_out.append(batched_levenshtein_prefix_min(*rargs, mode="HW")), 1)
+    torch.cuda.synchronize()
+    rec = record["prefix_min_levenshtein"]
+    rec["max_abs_err"] = max(rec["max_abs_err"], max_err(k3_out[0], outs[0]))
+    check(torch.equal(k3_out[0], outs[0]), "repeat-heavy shape: prefix-min != Myers")
+    rec.update(repeat_heavy_ms=r3_ms,
+               repeat_heavy_bound_ms=lev_bound_ms(rargs[1], VELVET_LEN, "cells"))
+    print(f"[8] repeat-heavy shape: prefix-min kernel {r3_ms:.3f} ms (bound "
+          f"{rec['repeat_heavy_bound_ms']:.3f} ms), equal to Myers on all 256 rows; Myers "
+          f"bound {lev_bound_ms(rargs[1], VELVET_LEN, 'words'):.4f} ms")
 
     # -- phase 9: the biased traversal, cli study-own --traversal biased ------
     shutil.rmtree(BIASED_DIR, ignore_errors=True)

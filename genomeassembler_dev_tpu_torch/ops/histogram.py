@@ -7,26 +7,58 @@ genomeassembler_dev_tpu/ops/pallas/histogram_kernel.py (`_kernel`, wrapper
 `count_kmers_batched` launches it on the current stream or raises; for CPU
 tensors it runs the plain version, a flat bincount of row * bins + code,
 which is also the kernel's oracle. Invalid entries are dropped, and so are
-codes outside [0, bins).
+codes outside [0, bins), by the kernel itself as it reads int32 or int64
+codes. `launch_plan` sizes the kernel's slices, parts and counter copies;
+what bounds the kernel is described at the top of csrc/histogram.cu.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from genomeassembler_dev_tpu_torch.ops import cuda_build
 
-_SLICE_BINS = 16384  # 64 KiB of shared-memory counters per block
-_FILL_BLOCKS = 528  # 4 blocks for each of the H100's 132 SMs
-_PART_LEN = 2048  # the shortest part of a row that a block streams
+SLICE_BINS = 65536  # 128 KiB of packed 16-bit counters, one block's slice
+MAX_PART = 65532  # entries of a part: a 16-bit counter never carries; a multiple of 4
+FEW_BINS = 1024  # up to this many bins a slice, each warp counts into its own copy
+THREADS = 1024
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class HistogramPlan(NamedTuple):
+    """How csrc/histogram.cu lays a [B, N] -> [B, bins] count on the card:
+    a grid of (slices x parts, B) blocks."""
+    slice_bins: int  # bins a block counts: all of them, or 65,536
+    n_slices: int
+    n_parts: int  # parts of a row; more than one adds into a zeroed output
+    chunk: int  # entries of a part, at most MAX_PART
+    copies: int  # counter copies a block: 1, or one a warp for few bins
+    threads: int
+    shared_bytes: int  # copies x whole 16-byte vectors of packed counters
+
+
+def launch_plan(N: int, bins: int) -> HistogramPlan:
+    """The kernel's launch for rows of N entries into `bins` bins; each row
+    is one grid row of blocks, so the plan does not depend on the batch."""
+    slice_bins = min(bins, SLICE_BINS)
+    n_parts = max(1, _cdiv(N, MAX_PART))
+    chunk = 4 * _cdiv(_cdiv(N, n_parts), 4)  # at most MAX_PART, a multiple of 4
+    copies = THREADS // 32 if slice_bins <= FEW_BINS else 1
+    copy_words = 4 * _cdiv(_cdiv(slice_bins, 2), 4)  # two counters a 32-bit word
+    return HistogramPlan(slice_bins, _cdiv(bins, slice_bins), n_parts, chunk, copies,
+                         THREADS, 4 * copies * copy_words)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     lib.gadev_histogram_launch.restype = ctypes.c_int
     lib.gadev_histogram_launch.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
 
 
 def count_kmers_batched_plain(codes: torch.Tensor, valid: torch.Tensor,
@@ -59,18 +91,17 @@ def count_kmers_batched(codes: torch.Tensor, valid: torch.Tensor,
     B, N = codes.shape
     if not 0 < num_bins < 2**31 or B > 65535:
         raise ValueError(f"{num_bins} bins or {B} rows: beyond the kernel's grid")
-    # codes of 4^k bins fit int32 for k <= 15; larger values are out of range
-    codes = codes.clamp(-1, num_bins).to(torch.int32).contiguous()
+    codes = codes.contiguous()
     valid = valid.contiguous()
-    slice_bins = min(num_bins, _SLICE_BINS)
-    blocks = B * -(-num_bins // slice_bins)
-    n_parts = max(1, min(-(-N // _PART_LEN), -(-_FILL_BLOCKS // blocks)))
-    alloc = torch.zeros if n_parts > 1 else torch.empty
+    plan = launch_plan(N, num_bins)
+    alloc = torch.zeros if plan.n_parts > 1 else torch.empty
     out = alloc((B, num_bins), dtype=torch.int32, device=codes.device)
+    vec = codes.data_ptr() % 16 == 0 and valid.data_ptr() % 4 == 0
     lib = cuda_build.load("histogram", _declare)
     err = lib.gadev_histogram_launch(
         codes.data_ptr(), valid.data_ptr(), out.data_ptr(), B, N, num_bins,
-        slice_bins, n_parts, *cuda_build.launch_args(codes))
+        plan.slice_bins, plan.n_parts, plan.chunk, plan.copies, plan.threads,
+        plan.shared_bytes, codes.element_size(), int(vec), *cuda_build.launch_args(codes))
     if err != 0:
         raise RuntimeError(f"histogram kernel launch failed: CUDA error {err}")
     count_kmers_batched.launches += 1

@@ -37,6 +37,7 @@ from genomeassembler_dev_tpu_torch.ops.edit_distance import (  # noqa: E402
 from genomeassembler_dev_tpu_torch.ops.match import find_first_match as t_match  # noqa: E402
 from genomeassembler_dev_tpu_torch.ops.myers import (  # noqa: E402
     MAX_LANES, PEQ_CODES, batched_levenshtein_myers, launch_plan)
+from genomeassembler_dev_tpu_torch.ops import prefix_min as tpm  # noqa: E402
 from genomeassembler_dev_tpu_torch.ops.prefix_min import (  # noqa: E402
     batched_levenshtein_prefix_min)
 from genomeassembler_dev_tpu_torch.score.breakscore import breakscore as t_breakscore  # noqa: E402
@@ -217,6 +218,97 @@ class TestHistogram:
         with pytest.raises(ValueError):
             thist.count_kmers_batched(codes.to("meta"),
                                       torch.ones((2, 5), dtype=torch.bool, device="meta"), 16)
+
+
+def packed_histogram(codes, valid, bins, plan, vec=True):
+    """numpy model of csrc/histogram.cu: each block (row, slice, part) counts
+    into 16-bit halves of 32-bit words, entry i by the thread the kernel
+    gives it (scalar head and tail, 4-entry groups between) and that
+    thread's warp's counter copy; the copies' packed words add, then widen.
+    uint32 arithmetic as on the card, so a carry would show."""
+    B, N = codes.shape
+    T = plan.threads
+    out = np.zeros((B, bins), np.int64)
+    for b in range(B):
+        base = b * N
+        for part in range(plan.n_parts):
+            begin = part * plan.chunk
+            end = min(N, begin + plan.chunk)
+            head = min(end, begin + (4 - (base + begin) % 4) % 4) if vec else begin
+            tail = head + 4 * ((end - head) // 4 if vec else 0)
+            i = np.arange(begin, end)
+            thread = np.where(i < head, i - begin,
+                              np.where(i < tail, (i - head) // 4, i - tail)) % T
+            copy = (thread // 32) % plan.copies
+            for sl in range(plan.n_slices):
+                lo = sl * plan.slice_bins
+                width = min(plan.slice_bins, bins - lo)
+                copy_words = 4 * -(-((width + 1) // 2) // 4)
+                assert 4 * plan.copies * copy_words <= plan.shared_bytes
+                u = codes[b, begin:end].astype(np.int64) - lo
+                keep = valid[b, begin:end] & (u >= 0) & (u < width)
+                hist = np.zeros(plan.copies * copy_words, np.uint32)
+                np.add.at(hist, (copy * copy_words + (u >> 1))[keep],
+                          (np.uint32(1) << (16 * (u & 1)).astype(np.uint32))[keep])
+                words = hist.reshape(plan.copies, copy_words).sum(0, dtype=np.uint32)
+                counts = np.stack([words & 0xFFFF, words >> 16], 1).reshape(-1)[:width]
+                out[b, lo : lo + width] += counts
+    return out.astype(np.int32)
+
+
+# (B, N, k): the count study's four calls under study-all (B 1, read length
+# 12), the TPU kernel's shape, the parts' edges and the kernel's k range
+HIST_PLAN_SHAPES = [(1, 36663, 2), (1, 29997, 4), (1, 23331, 6), (1, 16665, 8),
+                    (256, 16665, 8), (1, 65532, 8), (1, 65533, 8), (2, 65535, 5),
+                    (2, 65536, 6), (3, 700, 9), (1, 1_000_000, 2), (1, 0, 4), (1, 5, 1)]
+
+
+class TestHistogramPlan:
+    """csrc/histogram.cu cannot run here: its launch plan and its packed
+    counting are held against the JAX package and the plain version."""
+
+    @pytest.mark.parametrize("B,N,k", HIST_PLAN_SHAPES)
+    def test_launch_plan(self, B, N, k):
+        bins = 4**k
+        plan = thist.launch_plan(N, bins)
+        assert plan.slice_bins == min(bins, 65536)
+        assert plan.n_slices * plan.slice_bins >= bins  # every bin has a block
+        assert plan.slice_bins == bins or plan.slice_bins % 4 == 0
+        assert plan.n_parts * plan.chunk >= N  # every entry has a part
+        assert plan.chunk <= 65535 and plan.chunk % 4 == 0  # no counter carries
+        assert plan.n_parts == 1 or (plan.n_parts - 1) * plan.chunk < N  # no empty part
+        assert B * plan.n_slices * plan.n_parts <= 2**31 - 1 and B <= 65535  # the grid
+        assert plan.threads % 32 == 0 and plan.threads <= 1024
+        assert plan.copies == (plan.threads // 32 if bins <= 1024 else 1)
+        assert plan.shared_bytes <= 227 * 1024 and plan.shared_bytes % 16 == 0
+        if N <= 65532:  # the count study's shapes: one part, no zeroed output
+            assert plan.n_parts == 1
+
+    @pytest.mark.parametrize("k", [2, 4, 5, 6, 8, 9])
+    @pytest.mark.parametrize("case", ["random", "one bin", "int64 out of range"])
+    def test_packed_model_vs_pallas_and_plain(self, k, case):
+        bins = 4**k
+        rng = np.random.default_rng(10 * k)
+        if case == "one bin":  # a low and a high half at the most a part holds
+            codes = np.array([[bins - 2] * 65532, [bins - 1] * 65532], np.int64)
+            valid = np.ones(codes.shape, bool)
+        else:
+            codes = rng.integers(0, bins, (2, 4099)).astype(np.int64)
+            valid = rng.random(codes.shape) < 0.9
+        if case == "int64 out of range":
+            codes[:, ::7] = rng.choice([-1, -2**40, bins, 2**40], codes[:, ::7].shape)
+        plan = thist.launch_plan(codes.shape[1], bins)
+        got = thist.count_kmers_batched(torch.from_numpy(codes), torch.from_numpy(valid), bins)
+        assert got.dtype == torch.int32
+        in_range = (codes >= 0) & (codes < bins)
+        jcodes = jnp.asarray(np.where(in_range, codes, 0).astype(np.int32))
+        want = np.asarray(count_kmers_mxu_pallas(jcodes, jnp.asarray(valid & in_range), k,
+                                                 chunk=2048, interpret=True))
+        np.testing.assert_array_equal(got.numpy(), want)
+        for vec in (True, False):
+            np.testing.assert_array_equal(packed_histogram(codes, valid, bins, plan, vec), want)
+        if case == "one bin":
+            assert plan.n_parts == 1 and want[0, bins - 2] == want[1, bins - 1] == 65532
 
 
 def pallas_test_cases():
@@ -431,3 +523,150 @@ class TestMyersWavefront:
         np.testing.assert_array_equal(got, want)
         np.testing.assert_array_equal(jax_k, want)
         np.testing.assert_array_equal(plain, want)
+
+
+def wavefront_prefix_min(qmat, qlens, target, mode, C, R, lanes):
+    """numpy model of csrc/prefix_min.cu's schedule, one query at a time:
+    lane t owns C consecutive columns and at step s computes rows
+    R (s - t) + 1 .. R (s - t) + R from its own previous row and the last
+    column of lane t - 1 for those rows (shuffles inside a warp, the parity
+    mailbox from the warp before), masked where the lane has no row; only
+    the warps up to the lane holding column qlen run (ceil(N / R) + used - 1
+    steps); queries wider than lanes x C columns run in
+    bands that hand their last column over through one row, read one step
+    ahead. Never-written mailbox slots and hand-off entries hold poison."""
+    N, M = len(target), qmat.shape[1]
+    hw = mode == "HW"
+    tcodes = np.asarray(target, np.int64)
+    poison = -(10**6)
+    band_cols = lanes * C
+    out = []
+    for row, qlen in zip(qmat, qlens):
+        qlen = min(max(int(qlen), 0), M)
+        if qlen == 0 or N == 0:
+            out.append(qlen if qlen else (0 if hw else N))
+            continue
+        nbands = -(-qlen // band_cols)
+        hbuf = np.full(N, poison, np.int64)
+        for band in range(nbands):
+            c0 = band * band_cols
+            used = min(lanes, -(-(qlen - c0) // C))
+            busy = -(-used // 32)
+            last = band == nbands - 1
+            gl = np.arange(32 * busy)  # the busy warps' lanes
+            lane, warp = gl % 32, gl // 32
+            j = c0 + gl[:, None] * C + np.arange(C) + 1  # [lanes, C] columns
+            qc = np.where(j <= qlen, row[np.clip(j - 1, 0, M - 1)].astype(np.int64), 0x100)
+            d = j.astype(np.int64)  # row 0
+            left_prev = c0 + gl * C  # row 0 of the column left of each lane
+            kq = qlen - (c0 + gl * C + 1)
+            owners = np.flatnonzero(last & (kq >= 0) & (kq < C))
+            best = qlen
+            mailbox = np.full((2, R, busy), poison, np.int64)
+            tail = np.repeat(d[:, C - 1:], R, axis=1)  # [lanes, R]
+            hb_next = hbuf[np.minimum(np.arange(R), N - 1)]
+            for s in range(-(-N // R) + used - 1):
+                i0 = R * (s - gl) + 1
+                lin = np.concatenate([np.full((1, R), poison), tail[:-1]])  # shuffles up
+                lin = np.where((lane == 0)[:, None],
+                               mailbox[(s + 1) & 1][:, np.maximum(warp - 1, 0)].T, lin)
+                if band > 0:
+                    lin[0], hb_next = hb_next, hbuf[np.minimum(i0[0] + R - 1 + np.arange(R),
+                                                               N - 1)]
+                else:
+                    lin[0] = 0 if hw else i0[0] + np.arange(R)
+                for r in range(R):
+                    i = i0 + r
+                    tc = tcodes[np.clip(i - 1, 0, N - 1)]
+                    ok = (i >= 1) & (i <= N)
+                    new = d.copy()
+                    diag, left = (left_prev if r == 0 else lin[:, r - 1]).copy(), lin[:, r].copy()
+                    for k in range(C):
+                        up = d[:, k]
+                        new[:, k] = np.minimum(left + 1,
+                                               np.minimum(up + 1, diag + (qc[:, k] != tc)))
+                        diag, left = up, new[:, k]
+                    d = np.where(ok[:, None], new, d)
+                    assert (d[ok] > poison // 2).all()
+                    for o in owners:
+                        if hw and ok[o]:
+                            best = min(best, int(d[o, kq[o]]))
+                    if not last and ok[used - 1]:
+                        hbuf[i[used - 1] - 1] = d[used - 1, C - 1]
+                    tail[:, r] = d[:, C - 1]
+                left_prev = np.where(i0 >= 1, lin[:, R - 1], left_prev)
+                mailbox[s & 1] = tail[31::32].T
+        (o,) = owners
+        out.append(best if hw else int(d[o, kq[o]]))
+    return np.array(out, np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _prefix_min_references(case, mode):
+    """(qmat, qlen, target codes, the JAX prefix-min Pallas kernel in
+    interpret mode, plain DP, spec) for one case and mode; "wide" holds
+    queries of 16,385 and 50,048 columns against a 120-base target."""
+    if case == "wide":
+        rng = np.random.default_rng(9)
+        target = rand_dna(rng, 120)
+        queries = [(target * 418)[:n] for n in (16385, 50048)] + ["", target[5:90]]
+    else:
+        queries, target = pallas_test_cases()[case]
+    qmat, qlen = pack(queries, pad=0)
+    tgt = encode_dna(target)
+    jargs = (jnp.asarray(qmat), jnp.asarray(qlen), jnp.asarray(tgt))
+    jax_k = np.asarray(j_prefix_min(*jargs, mode=mode, block_b=8, interpret=True))
+    plain = t_lev(torch.from_numpy(qmat), torch.from_numpy(qlen), torch.from_numpy(tgt),
+                  mode=mode).numpy()
+    want = np.array([spec.levenshtein(q, target, mode=mode) for q in queries], np.int32)
+    return qmat, qlen, tgt, jax_k, plain, want
+
+
+class TestPrefixMinWavefront:
+    """csrc/prefix_min.cu cannot run here: its launch plan and its wavefront
+    schedule are held against the JAX package on the CPU."""
+
+    @pytest.mark.parametrize("M", [
+        0, 1, 16 * 32, 16 * 32 + 1, 32 * 32, 32 * 32 + 1, 8192, 8193, 32 * 512, 32 * 512 + 1,
+        1152, 2000, 2048,  # own and biased checks: solutions to 2 kb
+        50000, 50048, 100096, 140000, 1_000_000])
+    def test_launch_plan(self, M):
+        plan = tpm.launch_plan(M)
+        C = plan.cols_per_lane
+        assert (C, plan.rows_per_step) in (tpm.ONE_BLOCK, tpm.BANDED)
+        assert plan.lanes % 32 == 0 and 32 <= plan.lanes <= tpm.MAX_LANES <= 1024
+        # C DP columns and C query codes a lane, ~10 a row of the step and
+        # ~20 besides (ptxas: 94 and 121 registers, no spills)
+        assert 2 * C + 10 * plan.rows_per_step + 20 <= min(255, 65536 // tpm.MAX_LANES)
+        bands = -(-max(M, 1) // plan.band_cols)
+        assert bands * plan.band_cols >= M  # every column has a lane
+        assert plan.lanes <= 32 * -(-max(M, 1) // (32 * C))  # no warp without columns
+        assert bands == 1 or plan.lanes == tpm.MAX_LANES  # bands only at full width
+
+    @pytest.mark.parametrize("mode", ["NW", "HW"])
+    @pytest.mark.parametrize("case", [0, 1, "wide"])
+    @pytest.mark.parametrize("C,R,lanes", [(16, 4, 64), (16, 4, 96), (32, 4, 32), (8, 1, 64),
+                                           ("plan", None, None)])
+    def test_schedule_vs_jax_plain_and_spec(self, C, R, lanes, case, mode):
+        qmat, qlen, tgt, jax_k, plain, want = _prefix_min_references(case, mode)
+        if C == "plan":
+            plan = tpm.launch_plan(qmat.shape[1])
+            C, R, lanes = plan.cols_per_lane, plan.rows_per_step, plan.lanes
+        got = wavefront_prefix_min(qmat, qlen, tgt, mode, C, R, lanes)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(jax_k, want)
+        np.testing.assert_array_equal(plain, want)
+
+    @pytest.mark.parametrize("mode", ["NW", "HW"])
+    def test_wrapper_takes_wide_queries(self, mode):
+        """Widths above the old 16,384-column limit: the CPU path gives the
+        plain DP's distances, and the plan covers them in bands."""
+        qmat, qlen, tgt, _, _, want = _prefix_min_references("wide", mode)
+        batched_levenshtein_prefix_min.launches = 0
+        got = batched_levenshtein_prefix_min(torch.from_numpy(qmat), torch.from_numpy(qlen),
+                                             torch.from_numpy(tgt), mode=mode)
+        assert batched_levenshtein_prefix_min.launches == 0
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert not hasattr(tpm, "MAX_WIDTH")
+        plan = tpm.launch_plan(qmat.shape[1])
+        assert -(-qmat.shape[1] // plan.band_cols) > 1
