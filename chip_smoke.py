@@ -32,7 +32,16 @@ NVIDIA GPU.
   [9] runs `cli study-own --traversal biased` on 1 kb segments with planted
       repeats (rows 12:9, 16:13, 25:15) and checks every experiment against
       a host string-level greedy walk, the port's CPU run, the native engine,
-      the prefix-min kernel and the plain DP.
+      the prefix-min kernel and the plain DP;
+ [10] runs `cli study-own --batched --seg-batch 16` over the full own grid
+      (7 rows x 16 iterations at the study shape) and the serial study on the
+      same segments, checks that every artifact agrees, and every experiment
+      against the native engine, the prefix-min kernel and (exp 1) the plain
+      DP; times each row both ways and the batched stages;
+ [11] holds the device ensemble merge against the native engine at 64 and
+      128 contigs with 10,000 orderings, and both against the spec at 200,
+      checks the collision guard on a duplicate-heavy ensemble, and times
+      the device and native merges.
 
     python3 chip_smoke.py
 
@@ -73,6 +82,8 @@ VELVET_LEN = 50000  # the velvet study's segments (studies/STUDY_velvet_r5.md)
 VELVET_TILE = 5000
 BIASED_DIR = os.path.join(HERE, "build", "smoke_biased")
 BIASED_GRID = ((12, 9), (16, 13), (25, 15))  # the biased study's rows
+BATCHED_DIR = os.path.join(HERE, "build", "smoke_batched")
+BATCHED_ITERS = 16  # one batch of 16 segments a row
 KERNELS = {  # name in the record: (csrc name, TPU kernel it replaces)
     "myers_levenshtein": ("myers", "genomeassembler_dev_tpu/ops/pallas/myers_kernel.py:58"),
     "kmer_histogram": ("histogram",
@@ -225,6 +236,35 @@ def greedy_walks(reads: list[str], k: int, probs8: np.ndarray, max_len: int) -> 
                 s += min(cands, key=lambda b: (-probs8[octamer_code(s[-7:] + b)], b))
             walks.add(s)
     return sorted(walks)
+
+
+def merge_cases(rng_for) -> dict:
+    """The contig sets of tests/test_merge_device.py's crossover (C 64),
+    production (C 128) and duplicate-heavy cases."""
+    rng = rng_for(7)
+    base = rand_dna(rng, 1200)
+    c64, seen = [], set()
+    for i in range(0, 1152, 18):
+        s = base[i : i + 24]
+        if rng.random() < 0.5:  # half lose the overlap (random tail)
+            s = s[:12] + rand_dna(rng, 12)
+        if s not in seen:
+            seen.add(s)
+            c64.append(s)
+    rng = rng_for(3)
+    seg = rand_dna(rng, 1500)
+    seg = seg[:400] + seg[100:300] + seg[400:]  # planted repeat
+    c128, seen = [], set()
+    for lo in range(0, len(seg) - 30, (len(seg) - 30) // 128):
+        s = seg[lo : lo + 30]
+        if s not in seen:
+            seen.add(s)
+            c128.append(s)
+    rng = rng_for(0)
+    dup = "ACGTC" + rand_dna(rng, 20) + "ACGTC"  # suffix_k == prefix_k
+    other = [rand_dna(rng, 30) for _ in range(4)]
+    return {"C 64": c64[:64], "C 128": c128[:128],
+            "duplicate-heavy": [dup, other[0], dup, other[1], dup, other[2], other[3]]}
 
 
 def main() -> int:
@@ -901,6 +941,148 @@ def main() -> int:
               "experiment: " + ", ".join(f"{name} {1e3 * t / STUDY_ITERS:.2f}"
                                          for name, t in stage_sum.items()))
     record["prefix_min_levenshtein"]["launches"] += batched_levenshtein_prefix_min.launches
+
+    # -- phase 10: the batched own study, cli study-own --batched -------------
+    shutil.rmtree(BATCHED_DIR, ignore_errors=True)
+    study = ["study-own", "--synthetic", "--total-iters", str(BATCHED_ITERS), "--device", "cuda"]
+    dirs = {name: os.path.join(BATCHED_DIR, name) for name in ("batched", "serial")}
+    torch.cuda.synchronize()
+    myers.batched_levenshtein_myers.launches = 0
+    batched_levenshtein_prefix_min.launches = 0
+    starts = {"batched": time.time()}
+    cli.main(study + ["--batched", "--seg-batch", "16", "--workdir", dirs["batched"]])
+    batched_wall = time.time() - starts["batched"]
+    batched_launches = myers.batched_levenshtein_myers.launches
+    n_exp = len(ExperimentConfig.OWN_STUDY_GRID) * BATCHED_ITERS
+    check(batched_launches == n_exp,
+          f"Myers launches in the batched study: {batched_launches}, not one an experiment")
+    check(batched_levenshtein_prefix_min.launches == 0, "prefix-min launched in the study")
+    record["myers_levenshtein"]["launches"] += batched_launches
+    starts["serial"] = time.time()
+    cli.main(study + ["--workdir", dirs["serial"]])
+    serial_wall = time.time() - starts["serial"]
+    print(f"[10] study-own --batched --seg-batch 16: {n_exp} experiments in {batched_wall:.3f} s "
+          f"({n_exp / batched_wall:.3f} experiments/s), Myers launches {batched_launches}; the "
+          f"serial study {serial_wall:.3f} s ({n_exp / serial_wall:.3f} experiments/s)")
+
+    bsegs = synthetic_segment_store(base.seed, base.seq_len, BATCHED_ITERS)
+    last = dict(starts)
+    for read_len, dbg_kmer in ExperimentConfig.OWN_STUDY_GRID:
+        cfg = base.with_(read_len=read_len, dbg_kmer=dbg_kmer)
+        asm = Assembler(cfg, dev)
+        row_end = {}
+        for name, d in dirs.items():
+            row_end[name] = max(os.path.getmtime(res_io.solutions_path(d, ind, cfg))
+                                for ind in range(1, BATCHED_ITERS + 1))
+        for ind in range(1, BATCHED_ITERS + 1):
+            what = f"batched row {read_len}:{dbg_kmer} exp {ind}"
+            got, want = (res_io.load_result_columns(res_io.solutions_path(d, ind, cfg))
+                         for d in (dirs["batched"], dirs["serial"]))
+            check(list(got) == RESULT_COLUMNS, f"{what}: columns")
+            check(got["sequence"] == want["sequence"], f"{what}: solutions != serial")
+            for col in RESULT_COLUMNS[1:]:
+                a, b = np.asarray(got[col]), np.asarray(want[col])
+                if col in ("sequence_len", "kmer_breaks", "lev_dist_vs_true"):
+                    check(np.array_equal(a, b), f"{what}: {col} != serial")
+                elif col.startswith("stat_test_KS"):
+                    check(np.array_equal(np.isnan(a), np.isnan(b)) and np.allclose(
+                        a[~np.isnan(b)], b[~np.isnan(b)], rtol=0, atol=1e-6),
+                        f"{what}: {col} != serial")
+                else:
+                    check(np.allclose(a, b, rtol=RTOL, atol=0, equal_nan=True),
+                          f"{what}: {col} != serial")
+            stats = []
+            for d in (dirs["batched"], dirs["serial"]):
+                with open(res_io.stats_path(d, ind, cfg)) as f:
+                    stats.append(json.load(f))
+            check(stats[0]["stats"] == stats[1]["stats"], f"{what}: stats != serial")
+            segment = bsegs.seqs[ind - 1]
+            target = torch.from_numpy(encode_dna(segment)).to(dev)
+            reads = reads_of(asm.simulate(target, StageTimer(dev, False)))
+            check(len(reads) == stats[0]["stats"]["nr_of_reads"], f"{what}: read count")
+            _, breaks = native.breakscore_native(got["sequence"], reads, probs)
+            check(np.array_equal(got["kmer_breaks"], breaks), f"{what}: kmer_breaks != native")
+            mat, lens = pack_strings(got["sequence"])
+            args = (torch.from_numpy(mat).to(dev), torch.from_numpy(lens).to(dev), target)
+            check(np.array_equal(got["lev_dist_vs_true"], batched_levenshtein_prefix_min(
+                *args, mode="NW").cpu().numpy()), f"{what}: lev_dist_vs_true != prefix-min kernel")
+            if ind == 1:
+                check(np.array_equal(got["lev_dist_vs_true"], batched_levenshtein(
+                    *args, mode="NW").cpu().numpy()), f"{what}: lev_dist_vs_true != plain DP")
+                stage_ms = {name: 1e3 * t for name, t in stats[0]["timings"].items()}
+        secs = {name: row_end[name] - last[name] for name in dirs}
+        last = row_end
+        print(f"[10] row {read_len}:{dbg_kmer}: {BATCHED_ITERS} experiments equal to the serial "
+              "run (artifacts), the native engine (breaks), the prefix-min kernel and (exp 1) "
+              f"the plain DP; batched {secs['batched']:.3f} s "
+              f"({BATCHED_ITERS / secs['batched']:.3f} experiments/s), serial "
+              f"{secs['serial']:.3f} s ({BATCHED_ITERS / secs['serial']:.3f} experiments/s) "
+              "(artifact write times); batch stages ms: " + ", ".join(
+                  f"{name} {t:.2f}" for name, t in stage_ms.items()))
+    record["prefix_min_levenshtein"]["launches"] += batched_levenshtein_prefix_min.launches
+    for name in ("results_summary.csv", "results_all.csv"):
+        rows = []
+        for d in (dirs["batched"], dirs["serial"]):
+            with open(os.path.join(d, "IndustryModel_False", name), newline="") as f:
+                rows.append(list(csv.reader(f)))
+        check(len(rows[0]) == len(rows[1]) and rows[0][0] == rows[1][0], f"{name}: rows")
+        for x, y in zip(rows[0][1:], rows[1][1:]):
+            num = [i for i, v in enumerate(y) if re.fullmatch(r"[-+.\deE]+|nan", v)]
+            check([v for i, v in enumerate(x) if i not in num]
+                  == [v for i, v in enumerate(y) if i not in num]
+                  and np.allclose([float(x[i]) for i in num], [float(y[i]) for i in num],
+                                  rtol=RTOL, atol=1e-6, equal_nan=True), f"{name}: values")
+    print("[10] results_summary.csv and results_all.csv equal to the serial study's")
+
+    # -- phase 11: the device ensemble merge ----------------------------------
+    from genomeassembler_dev_tpu_torch.core.rng import shuffle_orderings
+    from genomeassembler_dev_tpu_torch.merge import engine
+    from genomeassembler_dev_tpu_torch.merge.device import (
+        _hash_arrays, _merge_kernel, assemble_device)
+    from genomeassembler_dev_tpu_torch.spec import reference_semantics as spec
+
+    cases = merge_cases(np.random.default_rng)
+    for name, seed in (("C 64", 1234), ("C 128", 11)):
+        contigs = cases[name]
+        check(len(contigs) == int(name[2:]), f"{name}: {len(contigs)} contigs")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        got = assemble_device(contigs, 9, seed, 10000, dev)
+        dev_s = time.time() - t0
+        t0 = time.time()
+        want = native.assemble_native(contigs, 9, seed, 10000)
+        nat_s = time.time() - t0
+        check(got == want, f"{name}: device merge != native engine at 10,000 orderings")
+        small = [assemble_device(contigs, 9, seed, 200, dev),
+                 native.assemble_native(contigs, 9, seed, 200),
+                 spec.assemble_solutions(spec.shuffled_orderings(contigs, seed, 200), 9)]
+        check(small[0] == small[1] == small[2], f"{name}: device, native and spec at 200")
+        auto = engine.preferred_backend(len(contigs), 10000, True, True)
+        # the device merge's split: the ordering replay on the host, then the
+        # fixpoint loop on the card; the rest is the hash arrays and the
+        # host chain rebuild
+        t0 = time.time()
+        perms = shuffle_orderings(len(contigs), 10000, seed)
+        replay_s = time.time() - t0
+        arrays = [torch.from_numpy(a.astype(np.int64)).to(dev) for a in _hash_arrays(contigs)]
+        torch.cuda.synchronize()
+        t0 = time.time()
+        _merge_kernel(torch.from_numpy(perms).long().to(dev), *arrays, 9)
+        torch.cuda.synchronize()
+        loop_s = time.time() - t0
+        print(f"[11] {name}, dbg k 9, 10,000 orderings: {len(got)} solutions, device merge "
+              f"{dev_s:.3f} s (ordering replay {replay_s:.3f} s, fixpoint loop on the card "
+              f"{loop_s:.3f} s, the rest the hash arrays and the chain rebuild), native "
+              f"{nat_s:.3f} s; equal, and equal to the spec at 200 orderings; auto on CUDA "
+              f"picks {auto}")
+    dup = cases["duplicate-heavy"]
+    got = assemble_device(dup, 6, 1234, 50, dev)
+    check(assemble_device.last_n_fallback > 0, "duplicate-heavy: the collision guard idle")
+    check(got == native.assemble_native(dup, 6, 1234, 50)
+          == spec.assemble_solutions(spec.shuffled_orderings(dup, 1234, 50), 6),
+          "duplicate-heavy: device != native, spec")
+    print(f"[11] duplicate-heavy: {assemble_device.last_n_fallback} of 50 orderings re-merged "
+          "exactly on the host; equal to native and spec")
 
     print(f"[7] total {time.perf_counter() - t_start:.1f} s")
 

@@ -54,7 +54,8 @@ def _add_study(p):
     p.add_argument("--grid", default=None,
                    help="comma list of read_len:dbg_kmer pairs, e.g. 12:9,14:9")
     p.add_argument("--batched", action="store_true",
-                   help="batched device stages across segments (not ported yet)")
+                   help="run the device stages batched across segments "
+                        "(identical outputs; no read FASTAs are written)")
     p.add_argument("--seg-batch", type=int, default=16,
                    help="segments per batch with --batched")
 
@@ -104,7 +105,7 @@ def _own_study(args, dev):
     return run_own_study(
         args.workdir, _segments(args), dev, base=_config(args), grid=_grid(args),
         total_iters=args.total_iters, verbose=args.verbose,
-        batched=args.batched, plots=args.plots,
+        batched=args.batched, seg_batch=args.seg_batch, plots=args.plots,
     )
 
 

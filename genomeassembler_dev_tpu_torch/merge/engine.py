@@ -1,18 +1,50 @@
-"""Solution assembly (mirrors genomeassembler_dev_tpu/merge/engine.py,
-native backend only): the shuffled ordering ensemble -> merged,
-deduplicated solutions sorted by (-length, lexicographic)."""
+"""Solution assembly (mirrors genomeassembler_dev_tpu/merge/engine.py): the
+shuffled ordering ensemble -> merged, deduplicated solutions sorted by
+(-length, lexicographic).
+
+Backends: "native" (the threaded C++ engine, merge/native.py), "device" (the
+ensemble on a torch device, merge/device.py), "spec" (the string-level spec)
+and "auto". Auto follows the JAX package's crossover table and picks the
+device merge only when the merge's device is CUDA; otherwise native. There is
+no spec fallback: the native engine builds or raises.
+"""
 
 from __future__ import annotations
 
+import torch
+
 from genomeassembler_dev_tpu_torch.merge import native
+from genomeassembler_dev_tpu_torch.merge.device import assemble_device
+from genomeassembler_dev_tpu_torch.spec import reference_semantics as spec
+
+
+def preferred_backend(n_contigs: int, n_orderings: int, native_ok: bool,
+                      accelerator_ok: bool) -> str:
+    """The JAX package's crossover table (measured there on a TPU v5e host,
+    studies/merge_xover.log): the device merge at C >= 128 for any ordering
+    count and at C >= 64 with 10,000 or more orderings; native below."""
+    device_wins = n_contigs >= 128 or (n_contigs >= 64 and n_orderings >= 10000)
+    if accelerator_ok and device_wins:
+        return "device"
+    if native_ok:
+        return "native"
+    return "device" if accelerator_ok and n_contigs >= 32 else "spec"
 
 
 def assemble_solutions(contigs: list[str], dbg_kmer: int, seed: int,
                        n_orderings: int = 10000, backend: str = "auto",
-                       n_threads: int | None = None) -> list[str]:
-    """"auto" is "native": the device merge and the spec fallback of the JAX
-    package are not ported."""
-    if backend not in ("auto", "native"):
-        raise NotImplementedError(
-            f"merge backend {backend!r} is not ported; use 'native'")
-    return native.assemble_native(contigs, dbg_kmer, seed, n_orderings, n_threads)
+                       n_threads: int | None = None, device="cpu") -> list[str]:
+    """Merge the shuffled ordering ensemble of `contigs` into solutions,
+    sorted by (-length, lexicographic). The device backend runs on
+    `device`; auto takes it only where `device` is CUDA."""
+    if backend == "auto":
+        backend = preferred_backend(len(contigs), n_orderings, True,
+                                    torch.device(device).type == "cuda")
+    if backend == "native":
+        return native.assemble_native(contigs, dbg_kmer, seed, n_orderings, n_threads)
+    if backend == "device":
+        return assemble_device(contigs, dbg_kmer, seed, n_orderings, device)
+    if backend == "spec":
+        return spec.assemble_solutions(spec.shuffled_orderings(contigs, seed, n_orderings),
+                                       dbg_kmer)
+    raise ValueError(f"unknown backend {backend!r}")

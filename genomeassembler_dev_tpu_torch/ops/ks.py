@@ -1,7 +1,8 @@
 """Batched two-sample Kolmogorov-Smirnov statistic (mirrors
 genomeassembler_dev_tpu/ops/ks.py).
 
-Each row's sample is pooled with the shared sample and sorted; both ECDFs
+Each row's sample is pooled with the second sample (one shared [M], or one
+a row [B, M]: each segment of a batch has its own track) and sorted; both ECDFs
 are cumulative sums of origin weights along the sorted order, and the gap is
 read only at the end of each tie run (right-continuous ECDFs, ties across
 the two samples included, as R's ks.test).
@@ -30,13 +31,14 @@ def _ks_from_pooled(values: torch.Tensor, wx: torch.Tensor,
 def batched_ks_2samp_masked(x_rows: torch.Tensor, x_valid: torch.Tensor,
                             y: torch.Tensor) -> torch.Tensor:
     """KS statistic of the valid entries of each row of x_rows [B, N] vs the
-    shared sample y [M]. Rows with no valid entries return NaN."""
+    shared sample y [M], or vs its own row of y [B, M]. Rows with no valid
+    entries return NaN."""
     B, N = x_rows.shape
-    M = y.shape[0]
+    M = y.shape[-1]
     dev = x_rows.device
     n_valid = x_valid.sum(dim=1)
     xm = torch.where(x_valid, x_rows.float(), float("inf"))
-    values = torch.cat([xm, y.float()[None, :].expand(B, M)], dim=1)
+    values = torch.cat([xm, y.float().expand(B, M)], dim=1)
     inv_n = (1.0 / n_valid.clamp(min=1).float())[:, None]
     wx = torch.cat([torch.where(x_valid, inv_n, 0.0),
                     torch.zeros(B, M, device=dev)], dim=1)
@@ -49,7 +51,8 @@ def batched_ks_2samp_masked(x_rows: torch.Tensor, x_valid: torch.Tensor,
 
 def batched_ks_2samp(x_rows: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """KS statistic of each full row of x_rows [B, N] vs the shared sample
-    y [M]. Rows containing NaN (no matched reads) return NaN."""
+    y [M], or vs its own row of y [B, M]. Rows containing NaN (no matched
+    reads) return NaN."""
     nan = torch.isnan(x_rows)
     d = batched_ks_2samp_masked(torch.where(nan, 0.0, x_rows),
                                 torch.ones_like(nan), y)

@@ -11,6 +11,9 @@ functions, the compare grid `find_first_match` and the sort-merge join
 A read of up to 31 bases is its own key. A longer read is cut into words of
 up to 31 bases, and the windows' and reads' word tuples are ranked jointly
 (torch.unique over rows): equal tuples share a rank, and the rank is the key.
+
+Reads [G, R, Lr] match a group of G segments in one call: the solution rows
+split into G equal blocks, and each block searches its own segment's reads.
 """
 
 from __future__ import annotations
@@ -47,28 +50,32 @@ def _word_keys(path_codes: torch.Tensor, read_codes: torch.Tensor):
 def find_first_match(
     path_codes: torch.Tensor,  # [S, L] base codes, pad > 3
     path_lens: torch.Tensor,  # [S]
-    read_codes: torch.Tensor,  # [R, Lr] base codes (pure ACGT)
-    read_valid: torch.Tensor,  # [R] bool
+    read_codes: torch.Tensor,  # [R, Lr] or, for G groups of S/G rows, [G, R, Lr] (pure ACGT)
+    read_valid: torch.Tensor,  # [R] or [G, R] bool
 ):
     """Returns (found [S, R] bool, first_pos [S, R] int32; 0 where not
     found). A read matches at window p iff p + Lr <= path_len and the bases
-    agree; windows holding pad bases never match."""
+    agree; windows holding pad bases never match. With grouped reads, rows
+    g * S/G ... (g + 1) * S/G - 1 are matched against read_codes[g]."""
     S, L = path_codes.shape
-    R, Lr = read_codes.shape
+    reads = read_codes.reshape((-1,) + read_codes.shape[-2:])  # [G, R, Lr]
+    G, R, Lr = reads.shape
     P = L - Lr + 1
     if Lr <= WORD_BASES:
         win, wvalid = kmer_window_codes(path_codes, Lr, dtype=torch.int64)  # [S, P]
-        rcode = kmer_window_codes(read_codes, Lr, dtype=torch.int64)[0][:, 0]  # [R]
+        rcode = kmer_window_codes(reads, Lr, dtype=torch.int64)[0][..., 0]  # [G, R]
     else:
-        win, rcode, wvalid = _word_keys(path_codes, read_codes)
+        win, rcode, wvalid = _word_keys(path_codes, reads.reshape(G * R, Lr))
+        rcode = rcode.view(G, R)
     pos = torch.arange(P, device=path_codes.device)
     in_range = pos[None, :] + Lr <= path_lens[:, None]
     keys = torch.where(wvalid & in_range, win, _NO_WINDOW)
     skeys, perm = torch.sort(keys, dim=1, stable=True)
 
-    q = rcode[None, :].expand(S, R).contiguous()
+    q = rcode.repeat_interleave(S // G, dim=0)  # [S, R]: each row's reads
     idx = torch.searchsorted(skeys, q)  # first window with key >= read
     idx_c = idx.clamp(max=P - 1)
-    found = (idx < P) & (skeys.gather(1, idx_c) == q) & read_valid[None, :]
+    rvalid = read_valid.reshape(G, R).repeat_interleave(S // G, dim=0)
+    found = (idx < P) & (skeys.gather(1, idx_c) == q) & rvalid
     first = torch.where(found, perm.gather(1, idx_c), 0).to(torch.int32)
     return found, first

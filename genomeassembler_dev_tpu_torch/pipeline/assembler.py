@@ -5,10 +5,11 @@ solution against the true and the uniform probability tables -> one results
 table. The break-count matrix does not depend on the table, so it is built
 once and both score families are dot products against it.
 
-Ported: the standard traversal for every dbg_kmer up to 31 with the native
-merge, the biased traversal (dbg/biased.py) for dbg_kmer 9-31, and the
-k-mer-count path (only_kmers_from_reads). Everything runs on the Assembler's
-explicit `device`.
+Ported: the standard traversal for every dbg_kmer up to 31 with every merge
+backend (merge/engine.py), the biased traversal (dbg/biased.py) for dbg_kmer
+9-31, and the k-mer-count path (only_kmers_from_reads). Everything runs on the
+Assembler's explicit `device`; pipeline/batch_runner.py runs the standard
+path batched across segments.
 """
 
 from __future__ import annotations
@@ -98,6 +99,59 @@ def pad_reads(uniq: torch.Tensor, counts: torch.Tensor, multiple: int = 512):
     return codes, cnts, valid
 
 
+def experiment_stats(cfg: ExperimentConfig, segment: str, genome_np: np.ndarray,
+                     n_reads: int) -> dict:
+    """The dbg_summary stats of one experiment."""
+    acgt = np.bincount(genome_np[genome_np <= 3], minlength=4)
+    return {
+        "base_composition": (acgt / len(segment)).tolist(),
+        "coverage": round(n_reads * cfg.read_len / cfg.seq_len, 3),
+        "nr_of_reads": n_reads,
+        "genome_seq": segment,
+    }
+
+
+def solution_columns(solutions: list[str], plens_np: np.ndarray, host: dict[str, np.ndarray],
+                     seq_len: int) -> dict[str, np.ndarray | list]:
+    """The own path's results table from every score of every solution
+    (host arrays in solution order, pad rows allowed past len(solutions)):
+    rows by true-table bp_score, descending and stable."""
+    n_real = len(solutions)
+    host = {name: a[:n_real] for name, a in host.items()}
+    # own-path coverage fraction: every startpos is 0, so it is the longest
+    # solution over seq_len, capped at 100%
+    max_len = int(plens_np.max()) if solutions else 0
+    contig_frac = min(100.0, 100.0 * max_len / seq_len)
+    order = np.argsort(-host["bp"], kind="stable")
+    return {
+        "sequence": [solutions[i] for i in order],
+        "sequence_len": plens_np[:n_real][order],
+        "bp_score_true": host["bp"][order],
+        "bp_score_norm_by_break_freqs_true": host["bp_nb"][order],
+        "bp_score_norm_by_len_true": host["bp_nl"][order],
+        "kmer_breaks": host["breaks"][order],
+        "lev_dist_vs_true": host["lev"][order],
+        "stat_test_KS_true": host["ks"][order],
+        "contig_frac_len": np.full(n_real, contig_frac),
+        "bp_score_random": host["rand"][order],
+        "bp_score_norm_by_break_freqs_random": host["rand_nb"][order],
+        "bp_score_norm_by_len_random": host["rand_nl"][order],
+        "stat_test_KS_random": host["ks"][order],
+    }
+
+
+def random_scores(bs: BreakScores, plens: torch.Tensor, uniform: QueryTable):
+    """The random pass: the same break counts against the uniform table.
+    Returns (bp_score, norm_by_break_freqs, norm_by_len), each [S] (a
+    group's [G, S])."""
+    uni = uniform.combined.to(torch.float32)
+    total = bs.kmer_breaks.to(torch.float32).clamp(min=1.0)
+    bp_rand = dot_f32(bs.site_counts, uni)
+    norm_breaks = torch.where(
+        bs.kmer_breaks > 0, dot_f32(bs.site_counts / total[..., None], uni), 0.0)
+    return bp_rand, norm_breaks, bp_rand / plens.to(torch.float32).clamp(min=1.0)
+
+
 class Assembler:
     """Drives experiments over segments on one device. Stateless across
     experiments apart from the loaded tables."""
@@ -165,18 +219,8 @@ class Assembler:
                 # truncated to biased_max_solutions
                 sols = sorted(set(contigs), key=lambda s: (-len(s), s))
                 return sols[: cfg.biased_max_solutions]
-            return assemble_solutions(contigs, cfg.dbg_kmer, cfg.seed,
-                                      cfg.n_orderings, backend=cfg.merge_backend)
-
-    def random_scores(self, bs: BreakScores, plens: torch.Tensor):
-        """The random pass: the same break counts against the uniform table.
-        Returns (bp_score, norm_by_break_freqs, norm_by_len), each [S]."""
-        uni = self.uniform.combined.to(torch.float32)
-        total = bs.kmer_breaks.to(torch.float32).clamp(min=1.0)
-        bp_rand = dot_f32(bs.site_counts, uni)
-        norm_breaks = torch.where(
-            bs.kmer_breaks > 0, dot_f32(bs.site_counts / total[:, None], uni), 0.0)
-        return bp_rand, norm_breaks, bp_rand / plens.to(torch.float32).clamp(min=1.0)
+            return assemble_solutions(contigs, cfg.dbg_kmer, cfg.seed, cfg.n_orderings,
+                                      backend=cfg.merge_backend, device=self.device)
 
     def score(self, solutions: list[str], rs: ReadSet, genome_codes: torch.Tensor,
               timer: StageTimer) -> dict[str, np.ndarray | list]:
@@ -190,18 +234,10 @@ class Assembler:
             rcodes, rcounts, rvalid = pad_reads(uniq, counts, cfg.read_chunk)
             bs = breakscore(pmat, plens, rcodes, rcounts, rvalid,
                             self.table.combined, break_kmer=cfg.kmer)
-            bp_rand, bp_rand_norm_breaks, bp_rand_norm_len = self.random_scores(bs, plens)
+            bp_rand, bp_rand_norm_breaks, bp_rand_norm_len = random_scores(bs, plens, self.uniform)
             lev = batched_levenshtein_auto(pmat, plens, genome_codes, mode="NW")
             ks = batched_ks_2samp(bs.path_freq, rs.track)
-
-            # own-path coverage fraction: every startpos is 0, so it is the
-            # longest solution over seq_len, capped at 100%
-            max_len = int(plens_np.max()) if solutions else 0
-            contig_frac = min(100.0, 100.0 * max_len / cfg.seq_len)
-
-            # rows: true-table bp_score descending, stable; pad rows excluded
-            n_real = len(solutions)
-            host = {name: t.cpu().numpy()[:n_real] for name, t in (
+            host = {name: t.cpu().numpy() for name, t in (
                 ("bp", bs.bp_score),
                 ("bp_nb", bs.bp_score_norm_by_break_freqs),
                 ("bp_nl", bs.bp_score_norm_by_len),
@@ -212,22 +248,7 @@ class Assembler:
                 ("rand_nb", bp_rand_norm_breaks),
                 ("rand_nl", bp_rand_norm_len),
             )}
-            order = np.argsort(-host["bp"], kind="stable")
-            return {
-                "sequence": [solutions[i] for i in order],
-                "sequence_len": plens_np[:n_real][order],
-                "bp_score_true": host["bp"][order],
-                "bp_score_norm_by_break_freqs_true": host["bp_nb"][order],
-                "bp_score_norm_by_len_true": host["bp_nl"][order],
-                "kmer_breaks": host["breaks"][order],
-                "lev_dist_vs_true": host["lev"][order],
-                "stat_test_KS_true": host["ks"][order],
-                "contig_frac_len": np.full(n_real, contig_frac),
-                "bp_score_random": host["rand"][order],
-                "bp_score_norm_by_break_freqs_random": host["rand_nb"][order],
-                "bp_score_norm_by_len_random": host["rand_nl"][order],
-                "stat_test_KS_random": host["ks"][order],
-            }
+            return solution_columns(solutions, plens_np, host, cfg.seq_len)
 
     def count_only(self, rs: ReadSet, timer: StageTimer) -> dict[str, np.ndarray]:
         """The only_kmers_from_reads path: the histogram of the reads'
@@ -240,17 +261,6 @@ class Assembler:
                     "count": counts.cpu().numpy()}
 
     # -- full experiment ----------------------------------------------------
-
-    def _stats(self, segment: str, genome_np: np.ndarray, rs: ReadSet) -> dict:
-        """The dbg_summary stats of one experiment."""
-        n_reads = int(rs.valid.sum())
-        acgt = np.bincount(genome_np[genome_np <= 3], minlength=4)
-        return {
-            "base_composition": (acgt / len(segment)).tolist(),
-            "coverage": round(n_reads * self.config.read_len / self.config.seq_len, 3),
-            "nr_of_reads": n_reads,
-            "genome_seq": segment,
-        }
 
     def run_experiment(self, segment: str, read_set: tuple | None = None) -> ExperimentResult:
         """Run one experiment. `read_set` optionally replays a stored
@@ -265,7 +275,7 @@ class Assembler:
         else:
             rs = self.simulate(genome_codes, timer)
 
-        stats = self._stats(segment, genome_np, rs)
+        stats = experiment_stats(self.config, segment, genome_np, int(rs.valid.sum()))
         if cfg.only_kmers_from_reads:
             cols = self.count_only(rs, timer)
             return ExperimentResult(columns=cols, stats=stats, timings=timer.times)

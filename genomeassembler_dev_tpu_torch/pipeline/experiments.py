@@ -17,8 +17,8 @@ Plot generation is replaced by the CSV outputs the plots were drawn from
 (SURVEY.md §7.4); any plotting stack can consume them.
 
 Mirrors genomeassembler_dev_tpu/pipeline/experiments.py on an explicit
-device. Not ported yet: the batched runner (`batched=True`) and the
-per-experiment plots (`plots=True`); each raises.
+device. Not ported yet: the per-experiment plots (`plots=True`), which
+raise.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from genomeassembler_dev_tpu_torch.core.encoding import encode_dna
 from genomeassembler_dev_tpu_torch.core.querytable import QueryTable, load_default_query_table
 from genomeassembler_dev_tpu_torch.pipeline import results as res_io
 from genomeassembler_dev_tpu_torch.pipeline.assembler import Assembler
+from genomeassembler_dev_tpu_torch.pipeline.batch_runner import run_experiments_batched
 from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
 from genomeassembler_dev_tpu_torch.sim.reads_io import save_read_fastas
 from genomeassembler_dev_tpu_torch.sim.segments import SegmentStore
@@ -73,11 +74,8 @@ class StudyReport:
     n_skipped: int
 
 
-def refuse_unported(batched: bool = False, plots: bool = False) -> None:
+def refuse_unported(plots: bool = False) -> None:
     """Raise for the options whose paths are not ported yet."""
-    if batched:
-        raise NotImplementedError(
-            "the batched runner is not ported yet (ROADMAP.md Queue 1, item 2)")
     if plots:
         raise NotImplementedError(
             "per-experiment plots are not ported: the port carries no "
@@ -94,6 +92,7 @@ def run_own_study(
     table: QueryTable | None = None,
     verbose: bool = False,
     batched: bool = False,
+    seg_batch: int = 16,
     plots: bool = False,
 ) -> StudyReport:
     """The own-dBG study (scripts/02_…:21-53 + aggregation :59-214) on
@@ -101,9 +100,12 @@ def run_own_study(
 
     Segments index experiments: experiment i uses segments[i-1] (1-based ind,
     as the reference's exp_<i> layout). Existing artifacts are skipped —
-    the reference's file-per-experiment resume contract.
+    the reference's file-per-experiment resume contract. With batched=True
+    the device stages run across seg_batch segments at a time
+    (pipeline/batch_runner.py; identical outputs, far fewer launches), and
+    no read FASTAs are written, as in the JAX package.
     """
-    refuse_unported(batched, plots)
+    refuse_unported(plots)
     base = base or ExperimentConfig(
         seq_len=1000, coverage_target=40.0, kmer=8, seed=1234
     )
@@ -117,6 +119,19 @@ def run_own_study(
         pending = [i for i in range(1, total_iters + 1)
                    if not res_io.experiment_done(workdir, i, cfg)]
         n_skip += total_iters - len(pending)
+        if batched:
+            for lo in range(0, len(pending), seg_batch):
+                chunk = pending[lo : lo + seg_batch]
+                # the last chunk is filled up with its first segment, as the
+                # JAX runner keeps one batch shape; the extra results go
+                segs_chunk = [segments.seqs[i - 1] for i in chunk]
+                segs_chunk += segs_chunk[:1] * (seg_batch - len(chunk))
+                results = run_experiments_batched(cfg, segs_chunk, device, table,
+                                                  verbose=verbose)
+                for i, res in zip(chunk, results):
+                    res_io.save_result(workdir, i, cfg, res)
+                    n_run += 1
+            continue
         asm = Assembler(cfg, device, table, verbose=verbose)
         for i in pending:
             res = asm.run_experiment(segments.seqs[i - 1])

@@ -23,8 +23,7 @@ import numpy as np
 from genomeassembler_dev_tpu_torch.pipeline.assembler import RESULT_COLUMNS, ExperimentResult
 from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
 
-# the velvet path's solution table (genomeassembler_dev_tpu/pipeline/velvet.py),
-# whose path is not ported yet; its schema is checked all the same
+# the velvet path's solution table (pipeline/velvet.py)
 VELVET_RESULT_COLUMNS = [
     "sequence", "sequence_len",
     "bp_score_true", "bp_score_norm_by_break_freqs_true",

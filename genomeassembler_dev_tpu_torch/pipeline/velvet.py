@@ -36,7 +36,7 @@ from genomeassembler_dev_tpu_torch.ops.edit_distance import batched_levenshtein_
 from genomeassembler_dev_tpu_torch.ops.ks import batched_ks_2samp_masked
 from genomeassembler_dev_tpu_torch.ops.windows import kmer_window_codes
 from genomeassembler_dev_tpu_torch.pipeline.assembler import (
-    Assembler, ExperimentResult, pack_strings, pad_reads)
+    Assembler, ExperimentResult, experiment_stats, pack_strings, pad_reads, random_scores)
 from genomeassembler_dev_tpu_torch.pipeline.results import VELVET_RESULT_COLUMNS  # noqa: F401
 from genomeassembler_dev_tpu_torch.score.breakscore import breakscore
 from genomeassembler_dev_tpu_torch.sim.reads import ReadSet, dedup_reads
@@ -119,7 +119,7 @@ class IndustryAssembler(Assembler):
             plens = torch.from_numpy(plens_np[lo : lo + s_chunk]).to(dev)
             bs = breakscore(pmat, plens, rcodes, rcounts, rvalid, self.table.combined,
                             break_kmer=cfg.kmer)
-            bp_rand, bp_rand_nb, bp_rand_nl = self.random_scores(bs, plens)
+            bp_rand, bp_rand_nb, bp_rand_nl = random_scores(bs, plens, self.uniform)
             prof, prof_valid = path_prob_profile(pmat, plens, self.table.probs[8])
             chunk = {
                 "bp_score": bs.bp_score,
@@ -150,12 +150,13 @@ class IndustryAssembler(Assembler):
             rs = self._replay_read_set(genome_codes, read_set)
         else:
             rs = self.simulate(genome_codes, timer)
-        stats = self._stats(segment, genome_np, rs)
+        stats = experiment_stats(self.config, segment, genome_np, int(rs.valid.sum()))
 
         with timer.stage("Merging shuffled contig orderings (velvet path)"):
             solutions = assemble_solutions(
                 external_contigs, cfg.dbg_kmer, cfg.seed,
-                cfg.velvet_n_orderings or DEFAULT_ORDERINGS, backend=cfg.merge_backend)
+                cfg.velvet_n_orderings or DEFAULT_ORDERINGS, backend=cfg.merge_backend,
+                device=self.device)
 
         with timer.stage("Evaluating each de novo assembled solution"):
             ev = self.evaluate(solutions, rs, genome_codes)

@@ -2,6 +2,7 @@
 replayed read set (all 13 result columns and the stats), the k-mer-count
 path, the own-dBG golden fixtures, and the port's independence from jax."""
 
+import csv
 import dataclasses
 import json
 import os
@@ -147,14 +148,66 @@ def test_count_only_vs_jax(jtable, k):
     assert list(tres.timings) == ["Extracting k-mers from sequencing reads"]
 
 
+def assert_same_artifacts(dir_a, dir_b):
+    """Two study workdirs hold the same artifacts with the same values:
+    solution lists and integers exact, floats at RTOL (NaN where NaN), the
+    stats equal; only the stage timings may differ."""
+    from genomeassembler_dev_tpu_torch.pipeline.results import load_result_columns
+
+    def files(root):
+        return sorted(os.path.relpath(os.path.join(d, f), root)
+                      for d, _, fs in os.walk(root) for f in fs)
+
+    def cell(v):
+        try:
+            return float(v)
+        except ValueError:
+            return v
+
+    assert files(dir_a) == files(dir_b)
+    for rel in files(dir_a):
+        a, b = os.path.join(dir_a, rel), os.path.join(dir_b, rel)
+        if rel.endswith(".json"):
+            with open(a) as fa, open(b) as fb:
+                assert json.load(fa)["stats"] == json.load(fb)["stats"], rel
+        elif os.path.basename(rel).startswith("SolutionsTable"):
+            ca, cb = load_result_columns(a), load_result_columns(b)
+            assert list(ca) == list(cb), rel
+            for name in ca:
+                if name == "sequence" or np.asarray(ca[name]).dtype.kind in "iu":
+                    np.testing.assert_array_equal(ca[name], cb[name], err_msg=f"{rel} {name}")
+                else:
+                    np.testing.assert_allclose(ca[name], cb[name], rtol=RTOL,
+                                               err_msg=f"{rel} {name}")
+        else:  # the study's aggregate tables
+            with open(a, newline="") as fa, open(b, newline="") as fb:
+                ra, rb = list(csv.reader(fa)), list(csv.reader(fb))
+            assert len(ra) == len(rb) and ra[0] == rb[0], rel
+            for x, y in zip(ra[1:], rb[1:]):
+                x, y = [cell(v) for v in x], [cell(v) for v in y]
+                assert [v for v in x if isinstance(v, str)] == [v for v in y if isinstance(v, str)]
+                np.testing.assert_allclose([v for v in x if not isinstance(v, str)],
+                                           [v for v in y if not isinstance(v, str)],
+                                           rtol=RTOL, err_msg=rel)
+
+
 def test_unported_paths_raise(tmp_path):
+    """Only the plots stay unported; batched=True writes the serial run's
+    artifact values."""
     from genomeassembler_dev_tpu_torch.pipeline.experiments import run_own_study
     from genomeassembler_dev_tpu_torch.sim.segments import synthetic_segment_store
 
-    segs = synthetic_segment_store(3, 250, 1)
-    for flag in ("batched", "plots"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run_own_study(str(tmp_path), segs, "cpu", **{flag: True})
+    segs = synthetic_segment_store(3, 250, 3)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run_own_study(str(tmp_path / "plots"), segs, "cpu", plots=True)
+    base = ExperimentConfig(seq_len=250, coverage_target=12.0, kmer=8, seed=1234,
+                            n_orderings=50)
+    reports = {name: run_own_study(str(tmp_path / name), segs, "cpu", base=base,
+                                   grid=((12, 9), (16, 13)), total_iters=3,
+                                   batched=name == "batched", seg_batch=2)
+               for name in ("serial", "batched")}
+    assert reports["batched"].n_experiments == reports["serial"].n_experiments == 6
+    assert_same_artifacts(str(tmp_path / "serial"), str(tmp_path / "batched"))
 
 
 def test_pack_strings_pad_rows():
@@ -182,6 +235,10 @@ def test_port_imports_no_jax():
         "genomeassembler_dev_tpu_torch.pipeline.velvet",
         "genomeassembler_dev_tpu_torch.dbg.graph",
         "genomeassembler_dev_tpu_torch.merge.engine",
+        "genomeassembler_dev_tpu_torch.merge.device",
+        "genomeassembler_dev_tpu_torch.core.rng",
+        "genomeassembler_dev_tpu_torch.spec.reference_semantics",
+        "genomeassembler_dev_tpu_torch.pipeline.batch_runner",
         "genomeassembler_dev_tpu_torch.sim.reads_io",
         "genomeassembler_dev_tpu_torch.sim.segments",
     ]

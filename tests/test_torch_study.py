@@ -7,6 +7,7 @@ the names, headers and row structure must be equal."""
 import contextlib
 import csv
 import filecmp
+import glob
 import io
 import json
 import os
@@ -278,9 +279,24 @@ def test_cli_run_and_refusals(tmp_path, capsys):
     out = json.loads(capsys.readouterr().out)
     assert out["solutions"] > 0 and os.path.exists(out["csv"])
     assert set(out["stats"]) == {"base_composition", "coverage", "nr_of_reads"}
-    for flag in ("--batched", "--plots"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcli.main(["study-own", "--device", "cpu", flag] + args)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tcli.main(["study-own", "--device", "cpu", "--plots"] + args)
+    # --batched --seg-batch reach the batched runner and write the serial
+    # run's values (the last batch of two filled up with its first segment)
+    for name, extra in (("serial", []), ("batched", ["--batched", "--seg-batch", "2"])):
+        tcli.main(["study-own", "--device", "cpu", "--grid", "12:9,40:15", "--seq-len", "250",
+                   "--coverage", "12", "--n-orderings", "50", "--total-iters", "3",
+                   "--workdir", str(tmp_path / name)] + extra)
+        assert json.loads(capsys.readouterr().out)["ran"] == 6
+    tables = sorted(os.path.relpath(p, tmp_path / "serial") for p in glob.glob(
+        str(tmp_path / "serial" / "results" / "exp_*" / "SolutionsTable*.csv")))
+    assert len(tables) == 6
+    for rel in tables:
+        ca, cb = (tres.load_result_columns(str(tmp_path / name / rel))
+                  for name in ("serial", "batched"))
+        assert ca["sequence"] == cb["sequence"], rel
+        for col in RESULT_COLUMNS[1:]:
+            np.testing.assert_allclose(ca[col], cb[col], rtol=2e-5, err_msg=f"{rel} {col}")
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):
             tcli.main(["study-own"] + args)
