@@ -41,7 +41,18 @@ NVIDIA GPU.
  [11] holds the device ensemble merge against the native engine at 64 and
       128 contigs with 10,000 orderings, and both against the spec at 200,
       checks the collision guard on a duplicate-heavy ensemble, and times
-      the device and native merges.
+      the device and native merges;
+ [12] runs `cli fit-model` at full width (k 8, hidden 256, batch 4096, 500
+      steps), checks that the loss halves, the card's forward against the CPU
+      plain path and a checkpoint round trip, and prints steps/s;
+ [13] the parallel layer at world 1: a one-rank NCCL group and its mesh,
+      the sharded sim+count step at the study shape (16 x 1 kb, K2), the
+      breakscore, KS and Levenshtein steps on one batched-runner group (K1),
+      the dp x tp train step against [12]'s unsharded step, the sharded table
+      lookup, both ring Levenshteins at one shard against K1 (timed), the
+      batched runner with the mesh against mesh=None, and `cli bench-scaling
+      --devices 1` at the study shape. K1's and K2's launches there join the
+      kernel record.
 
     python3 chip_smoke.py
 
@@ -84,6 +95,9 @@ BIASED_DIR = os.path.join(HERE, "build", "smoke_biased")
 BIASED_GRID = ((12, 9), (16, 13), (25, 15))  # the biased study's rows
 BATCHED_DIR = os.path.join(HERE, "build", "smoke_batched")
 BATCHED_ITERS = 16  # one batch of 16 segments a row
+MODEL_DIR = os.path.join(HERE, "build", "smoke_model")
+NCCL_STORE = os.path.join(HERE, "build", "smoke_parallel", "nccl_store")
+PARALLEL_SEGMENTS = 16  # the batched study's batch: 16 segments of 1 kb
 KERNELS = {  # name in the record: (csrc name, TPU kernel it replaces)
     "myers_levenshtein": ("myers", "genomeassembler_dev_tpu/ops/pallas/myers_kernel.py:58"),
     "kmer_histogram": ("histogram",
@@ -265,6 +279,317 @@ def merge_cases(rng_for) -> dict:
     other = [rand_dna(rng, 30) for _ in range(4)]
     return {"C 64": c64[:64], "C 128": c128[:128],
             "duplicate-heavy": [dup, other[0], dup, other[1], dup, other[2], other[3]]}
+
+
+def phase_model(dev) -> dict:
+    """[12] `cli fit-model` at full width (k 8, hidden 256, batch 4096, 500
+    steps) in process on the card; the trained forward on the card against
+    the CPU plain path, and a checkpoint round trip. Returns what [13]
+    needs."""
+    from contextlib import redirect_stdout
+    import io
+
+    from genomeassembler_dev_tpu_torch import cli
+    from genomeassembler_dev_tpu_torch.core.querytable import load_default_query_table
+    from genomeassembler_dev_tpu_torch.models import breakage_model as bm
+
+    shutil.rmtree(MODEL_DIR, ignore_errors=True)
+    path = os.path.join(MODEL_DIR, "breakage_model.npz")
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with redirect_stdout(out):
+        cli.main(["fit-model", "--device", "cuda", "--out", path])
+    wall = time.perf_counter() - t0  # the losses' read-back synchronises
+    rec = json.loads(out.getvalue().strip().splitlines()[-1])
+    check(rec["loss_last"] < 0.5 * rec["loss_first"],
+          f"fit-model: loss {rec['loss_first']} -> {rec['loss_last']}, not halved")
+    model = bm.load_params(path, dev)
+    check(tuple(model.w2.shape) == (256, 256), f"fit-model: w2 {tuple(model.w2.shape)}")
+    codes = torch.from_numpy(np.random.default_rng(12).integers(0, 4**8, 4096)).to(dev)
+    cpu_model = bm.load_params(path, "cpu")
+    with torch.no_grad():
+        # layer by layer on the same input: the two devices' float32
+        # activations may round to neighbouring bf16 values, which must be
+        # one bf16 ulp apart; every row's output is held to the CPU's
+        # read-out of the card's activations, every row whose bf16
+        # activations all equal the CPU's own forward's to that forward
+        feats = bm.one_hot_octamer(codes)
+        h1 = model.layer1(feats)
+        h2 = model.layer2(h1)
+        got = model.readout(h2).cpu()
+        cpu_h1 = cpu_model.layer1(feats.cpu())
+        want = cpu_model.readout(cpu_model.layer2(cpu_h1))
+        apart = torch.zeros(len(codes), dtype=torch.bool)
+        for mine, theirs, own in ((h1, cpu_h1, cpu_h1),
+                                  (h2, cpu_model.layer2(h1.cpu()), cpu_model.layer2(cpu_h1))):
+            a, b = bm.round_bf16(mine).cpu(), bm.round_bf16(theirs)
+            diff = a != b
+            mag = torch.maximum(a.abs(), b.abs())[diff].clamp(min=2.0**-126)
+            check(bool(((a - b).abs()[diff] <= 2.0 ** (torch.floor(torch.log2(mag)) - 7)).all()),
+                  "fit-model: a card activation more than one bf16 ulp from the CPU's")
+            apart |= (a != bm.round_bf16(own)).any(dim=1)
+        err_readout = float((got - cpu_model.readout(h2.cpu())).abs().max())
+        err = float((got - want).abs()[~apart].max())
+        check(err <= 1e-4 and err_readout <= 1e-4 and apart.float().mean() < 0.05,
+              f"fit-model: card forward vs CPU plain path: max abs err {err} "
+              f"({int(apart.sum())} rows with a bf16 activation rounded apart, read-out "
+              f"err {err_readout})")
+        again_path = os.path.join(MODEL_DIR, "again.npz")
+        bm.save_params(again_path, model)
+        check(torch.equal(bm.forward(bm.load_params(again_path, dev), feats).cpu(), got),
+              "fit-model: checkpoint round trip changed the outputs")
+    # steady-state steps at the same width: the CLI's time above holds the
+    # table load, the checkpoint and, in a fresh process, CUDA's start-up
+    target = torch.log(load_default_query_table(dev).probs[8].to(torch.float32))[codes]
+    step = bm.make_train_step(bm.adam(model, 3e-3))
+    step(model, codes, target)
+    step_ms = cuda_ms(lambda: step(model, codes, target), 50)
+    print(f"[12] fit-model k 8, hidden 256, batch 4096, 500 steps: {wall:.3f} s "
+          f"({500 / wall:.1f} steps/s, table load and checkpoint included); loss "
+          f"{rec['loss_first']:.4f} -> {rec['loss_last']:.4f}; card forward on 4,096 codes "
+          f"within {err:.2e} of the CPU plain path ({int(apart.sum())} rows with an "
+          f"activation one bf16 ulp apart, within {err_readout:.2e} of the CPU's read-out of "
+          "the card's activations); checkpoint round trip equal")
+    print(f"[12] a training step at the same width, steady state: {step_ms:.3f} ms "
+          f"({1e3 / step_ms:.1f} steps/s, CUDA events over 50 steps)")
+    return {"path": path}
+
+
+def study_group(dev, cfg, segments: list[str]):
+    """One batched-runner score group of the given segments at `cfg`: each
+    one's solutions (Assembler.run_experiment) padded to shared [G, S, L],
+    its distinct reads to [G, U, R], as pipeline/batch_runner.py packs them;
+    with the segments [G, L] and the read tracks [G, W]."""
+    from genomeassembler_dev_tpu_torch.core.encoding import INVALID, encode_dna
+    from genomeassembler_dev_tpu_torch.pipeline.assembler import (
+        Assembler, pack_strings, pad_reads)
+    from genomeassembler_dev_tpu_torch.sim.reads import dedup_reads
+    from genomeassembler_dev_tpu_torch.utils.timers import StageTimer
+
+    asm = Assembler(cfg, dev)
+    packed, genomes, tracks = [], [], []
+    for seg in segments:
+        genome = torch.from_numpy(encode_dna(seg)).to(dev)
+        rs = asm.simulate(genome, StageTimer(dev, False))
+        pmat, plens = pack_strings(asm.run_experiment(seg).columns["sequence"],
+                                   s_multiple=64, l_multiple=128)
+        packed.append((pmat, plens) + pad_reads(*dedup_reads(rs.codes, rs.valid), cfg.read_chunk))
+        genomes.append(genome)
+        tracks.append(rs.track)
+    G = len(segments)
+    S, L = (max(p[0].shape[i] for p in packed) for i in (0, 1))
+    U = max(p[2].shape[0] for p in packed)
+    pm = np.full((G, S, L), INVALID, np.uint8)
+    pl = np.zeros((G, S), np.int32)
+    rc = torch.zeros((G, U, cfg.read_len), dtype=torch.uint8, device=dev)
+    rn = torch.zeros((G, U), dtype=torch.int32, device=dev)
+    rv = torch.zeros((G, U), dtype=torch.bool, device=dev)
+    for g, (pmat, plens, codes, counts, valid) in enumerate(packed):
+        pm[g, : pmat.shape[0], : pmat.shape[1]] = pmat
+        pl[g, : plens.shape[0]] = plens
+        rc[g, : codes.shape[0]], rn[g, : counts.shape[0]], rv[g, : valid.shape[0]] = (
+            codes, counts, valid)
+    return (torch.from_numpy(pm).to(dev), torch.from_numpy(pl).to(dev), rc, rn, rv,
+            torch.stack(genomes), torch.stack(tracks))
+
+
+def phase_parallel(dev, record: dict, model: dict) -> None:
+    """[13] the parallel layer on one card: a one-rank NCCL group, then the
+    sharded steps, the train step, the table lookup, both rings, the batched
+    runner with a mesh and `cli bench-scaling --devices 1`, each against its
+    unsharded counterpart. K1's and K2's launches while the layer's paths run
+    are added to the kernel record; the comparisons come after the count."""
+    from contextlib import redirect_stdout
+    import io
+
+    import torch.distributed as dist
+
+    from genomeassembler_dev_tpu_torch import cli
+    from genomeassembler_dev_tpu_torch.core.encoding import encode_dna
+    from genomeassembler_dev_tpu_torch.core.querytable import load_default_query_table
+    from genomeassembler_dev_tpu_torch.models import breakage_model as bm
+    from genomeassembler_dev_tpu_torch.ops import myers
+    from genomeassembler_dev_tpu_torch.ops.edit_distance import batched_levenshtein
+    from genomeassembler_dev_tpu_torch.ops.edit_distance_ring import (
+        make_ring_levenshtein, make_ring_levenshtein_myers)
+    from genomeassembler_dev_tpu_torch.ops.histogram import (
+        count_kmers_batched, count_kmers_batched_plain)
+    from genomeassembler_dev_tpu_torch.ops.ks import batched_ks_2samp
+    from genomeassembler_dev_tpu_torch.ops.prefix_min import batched_levenshtein_prefix_min
+    from genomeassembler_dev_tpu_torch.ops.windows import kmer_window_codes
+    from genomeassembler_dev_tpu_torch.parallel import multihost, sharding
+    from genomeassembler_dev_tpu_torch.parallel.table_sharding import make_sharded_table_lookup
+    from genomeassembler_dev_tpu_torch.pipeline.assembler import RESULT_COLUMNS, pack_strings
+    from genomeassembler_dev_tpu_torch.pipeline.batch_runner import run_experiments_batched
+    from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
+    from genomeassembler_dev_tpu_torch.score.breakscore import breakscore
+    from genomeassembler_dev_tpu_torch.sim.reads import n_draws_for
+    from genomeassembler_dev_tpu_torch.sim.segments import synthetic_segment_store
+
+    os.makedirs(os.path.dirname(NCCL_STORE), exist_ok=True)
+    if os.path.exists(NCCL_STORE):
+        os.remove(NCCL_STORE)
+    t0 = time.perf_counter()
+    multihost.initialize(f"file://{NCCL_STORE}", 1, 0, device_type="cuda")
+    check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+    mesh = multihost.global_mesh(device_type="cuda")
+    print(f"[13] {dist.get_backend()} group of 1 rank and its (1, 1, 1) mesh in "
+          f"{time.perf_counter() - t0:.3f} s")
+    table = load_default_query_table(dev)
+    probs8 = table.probs[8].to(torch.float32)
+    base = ExperimentConfig(seq_len=1000, read_len=12, dbg_kmer=9, kmer=8, coverage_target=40.0,
+                            seed=1234, n_orderings=10000)
+    segs = synthetic_segment_store(1234, 1000, PARALLEL_SEGMENTS).seqs
+    genomes = torch.from_numpy(np.stack([encode_dna(s) for s in segs])).to(dev)
+    seeds = torch.arange(PARALLEL_SEGMENTS, dtype=torch.int32, device=dev)
+    n_draws = n_draws_for(40.0, 1000, 12)
+    group = study_group(dev, base, list(segs[:4]))
+    pm, pl, rc, rn, rv, gm, tracks = group
+    rng = np.random.default_rng(13)
+    codes = torch.from_numpy(rng.integers(0, 4**8, (4, 4096))).to(dev)
+    # the rings' cases: [64, 2048] x 1000 NW and [16, 512] x 5,000 HW
+    seg = segs[0]
+    sols = [mutate(rng, seg[int(a):], 0.02)[:1030] for a in rng.integers(0, 600, 64)]
+    mat, lens = pack_strings(sols, l_multiple=2048)
+    nw_args = (torch.from_numpy(mat).to(dev), torch.from_numpy(lens).to(dev),
+               torch.from_numpy(encode_dna(seg)).to(dev))
+    long_target = rand_dna(rng, 5000)
+    hw_q = [mutate(rng, long_target[int(a) : int(a) + 500], 0.03)[:512]
+            for a in rng.integers(0, 4500, 16)]
+    mat, lens = pack_strings(hw_q, l_multiple=512)
+    hw_args = (torch.from_numpy(mat).to(dev), torch.from_numpy(lens).to(dev),
+               torch.from_numpy(encode_dna(long_target)).to(dev))
+    batch_cfg = base.with_(read_len=12, dbg_kmer=9)
+    run_experiments_batched(batch_cfg, list(segs), dev, table)  # warm, before the count
+    model_cpu = bm.load_params(model["path"], "cpu")
+    train_codes = torch.from_numpy(rng.integers(0, 4**8, 4096)).to(dev)
+    train_target = torch.log(probs8)[train_codes]
+
+    # -- the layer's paths, counted ------------------------------------------
+    torch.cuda.synchronize()
+    myers.batched_levenshtein_myers.launches = 0
+    count_kmers_batched.launches = 0
+    batched_levenshtein_prefix_min.launches = 0
+    t_path = time.perf_counter()
+    sim_step = sharding.make_sim_count_step(mesh, 12, n_draws, 8)
+    counts = sim_step(genomes, seeds, probs8)
+    bs_step = sharding.make_breakscore_step(mesh)
+    bs = bs_step(pm, pl, rc, rn, rv, table.combined)
+    ks = sharding.make_ks_step(mesh)(bs["path_freq"], tracks)
+    lev = sharding.make_lev_step(mesh)(pm, pl, gm)
+    local = sharding.shard_params(mesh, bm.load_params(model["path"], dev))
+    train = sharding.make_sharded_train_step(mesh, bm.adam(local, 3e-3))
+    loss = train(local, train_codes, train_target)
+    looked, overflow = make_sharded_table_lookup(mesh, 4**8)(codes, probs8)
+    rings = {}
+    for kind, maker in (("prefix-min", make_ring_levenshtein),
+                        ("myers", make_ring_levenshtein_myers)):
+        for shape, mode, args in (("64x2048x1000", "NW", nw_args),
+                                  ("16x512x5000", "HW", hw_args)):
+            fn = maker(mesh, "read", mode)
+            start = time.perf_counter()
+            rings[(kind, shape)] = (fn(*args), mode, args)
+            torch.cuda.synchronize()
+            rings[(kind, shape)] += (time.perf_counter() - start,)
+    start = time.perf_counter()
+    batched = run_experiments_batched(batch_cfg, list(segs), dev, table, mesh=mesh)
+    mesh_runner_s = time.perf_counter() - start
+    out = io.StringIO()
+    with redirect_stdout(out):
+        cli.main(["bench-scaling", "--device", "cuda", "--devices", "1", "--seq-len", "1000",
+                  "--draws-per-segment", str(n_draws), "--segments-per-device",
+                  str(PARALLEL_SEGMENTS)])
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t_path
+    launches = {"myers_levenshtein": myers.batched_levenshtein_myers.launches,
+                "kmer_histogram": count_kmers_batched.launches}
+    check(batched_levenshtein_prefix_min.launches == 0, "prefix-min launched by the layer")
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched by the parallel layer")
+        record[name]["launches"] += n
+        record[name]["parallel_launches"] = n
+    print(f"[13] the layer's paths in {path_s:.3f} s; launches: Myers "
+          f"{launches['myers_levenshtein']}, histogram {launches['kmer_histogram']}")
+
+    # -- each against its unsharded counterpart ------------------------------
+    rs = sharding.simulate_read_shard(genomes, seeds, probs8, 12, n_draws, 0)
+    wc, wv = kmer_window_codes(rs.codes, 8)
+    wv = (wv & rs.valid[..., None]).reshape(PARALLEL_SEGMENTS, -1)
+    wc = wc.reshape(PARALLEL_SEGMENTS, -1)
+    check(torch.equal(counts, count_kmers_batched(wc, wv, 4**8)), "sim+count != K2 unsharded")
+    check(torch.equal(counts, count_kmers_batched_plain(wc, wv, 4**8)), "sim+count != plain")
+    sim_ms = cuda_ms(lambda: sim_step(genomes, seeds, probs8), 5)
+    print(f"[13] sim+count step, B {PARALLEL_SEGMENTS} x 1,000 bases, {n_draws} draws, k 8: "
+          f"equal to K2's unsharded count and the plain count of the same reads; "
+          f"{sim_ms:.3f} ms a step")
+
+    want = breakscore(pm, pl, rc, rn, rv, table.combined)
+    check(torch.equal(bs["kmer_breaks"], want.kmer_breaks), "breakscore step: kmer_breaks")
+    for name in ("bp_score", "bp_score_norm_by_break_freqs", "bp_score_norm_by_len",
+                 "path_freq", "site_counts"):
+        check(torch.allclose(bs[name], getattr(want, name), rtol=RTOL, atol=0, equal_nan=True),
+              f"breakscore step: {name}")
+    ks_want = torch.stack([batched_ks_2samp(pf, tr) for pf, tr in zip(want.path_freq, tracks)])
+    check(torch.allclose(ks, ks_want, rtol=0, atol=1e-6, equal_nan=True), "KS step")
+    lev_want = torch.stack([batched_levenshtein(a, b, g) for a, b, g in zip(pm, pl, gm)])
+    check(torch.equal(lev, lev_want), "Levenshtein step != plain DP")
+    step_ms = {"breakscore": cuda_ms(lambda: bs_step(pm, pl, rc, rn, rv, table.combined), 5),
+               "ks": cuda_ms(lambda: sharding.make_ks_step(mesh)(bs["path_freq"], tracks), 5),
+               "lev": cuda_ms(lambda: sharding.make_lev_step(mesh)(pm, pl, gm), 5)}
+    print(f"[13] breakscore, KS and Levenshtein steps on one group {tuple(pm.shape)} with "
+          f"{rc.shape[1]} reads: equal to the unsharded calls (breaks and distances exact, "
+          f"scores rtol 2e-5); ms a step: " + ", ".join(f"{k} {v:.3f}" for k, v in step_ms.items()))
+
+    ref = bm.params_from_numpy(bm.params_to_numpy(model_cpu), dev)
+    ref_loss = bm.make_train_step(bm.adam(ref, 3e-3))(ref, train_codes, train_target)
+    check(abs(float(loss) - float(ref_loss)) <= 1e-5 * abs(float(ref_loss)),
+          f"train step loss {float(loss)} != unsharded {float(ref_loss)}")
+    for name in bm.PARAM_NAMES:
+        a, b = getattr(local, name), getattr(ref, name)
+        check(torch.allclose(a.grad, b.grad, rtol=2.0**-7, atol=0), f"train step grad {name}")
+        check(torch.allclose(a, b, rtol=0, atol=1e-5), f"train step {name}")
+    train_ms = cuda_ms(lambda: train(local, train_codes, train_target), 20)
+    print(f"[13] sharded train step (hidden 256, batch 4096): loss {float(loss):.5f}, equal to "
+          f"[12]'s unsharded step within rtol 1e-5, grads within 2^-7, parameters within 1e-5; "
+          f"{train_ms:.3f} ms a step")
+
+    check(int(overflow) == 0 and torch.equal(looked, probs8[codes]), "table lookup != gather")
+    print("[13] sharded table lookup [4, 4096] equal to a direct gather, no overflow")
+
+    ring_rec = {}
+    for (kind, shape), (got, mode, args, secs) in rings.items():
+        k1 = myers.batched_levenshtein_myers(*args, mode=mode)
+        check(torch.equal(got, k1), f"{kind} ring {shape} {mode} != K1")
+        k1_ms = cuda_ms(lambda: myers.batched_levenshtein_myers(*args, mode=mode), 5)
+        ring_rec[f"{kind} {shape} {mode}"] = {"ring_ms": 1e3 * secs, "k1_ms": k1_ms}
+        print(f"[13] {kind} ring at one shard, {shape} {mode}: equal to K1; ring "
+              f"{1e3 * secs:.1f} ms (a Python loop of {args[2].shape[0] + 1} wavefront steps), "
+              f"K1 {k1_ms:.3f} ms")
+    record["myers_levenshtein"]["rings_one_shard"] = ring_rec
+
+    start = time.perf_counter()
+    plain_runner = run_experiments_batched(batch_cfg, list(segs), dev, table)
+    runner_s = time.perf_counter() - start
+    check(len(batched) == len(plain_runner) == PARALLEL_SEGMENTS, "runner: result count")
+    for i, (a, b) in enumerate(zip(batched, plain_runner)):
+        check(a.stats == b.stats and a.columns["sequence"] == b.columns["sequence"],
+              f"runner exp {i}: solutions or stats")
+        for col in RESULT_COLUMNS[1:]:
+            x, y = np.asarray(a.columns[col]), np.asarray(b.columns[col])
+            check(np.array_equal(x, y, equal_nan=x.dtype.kind == "f"), f"runner exp {i}: {col}")
+    print(f"[13] run_experiments_batched with the mesh, row 12:9 x {PARALLEL_SEGMENTS}: every "
+          f"artifact equal to mesh=None; {mesh_runner_s:.3f} s with it, {runner_s:.3f} s without")
+
+    pts = json.loads(out.getvalue().strip().splitlines()[-1])
+    check([p["devices"] for p in pts] == [1] and pts[0]["reads_per_s"] > 0, f"bench {pts}")
+    print(f"[13] bench-scaling --devices 1 at the study shape ({PARALLEL_SEGMENTS} x 1,000 "
+          f"bases, {n_draws} draws a segment): {pts[0]['reads_per_s']} reads/s")
+    record["kmer_histogram"]["parallel"] = {"sim_count_ms": sim_ms,
+                                            "bench_scaling_reads_per_s": pts[0]["reads_per_s"]}
+    record["myers_levenshtein"]["parallel_steps_ms"] = step_ms
+    dist.destroy_process_group()
+    print(f"[13] steps: train {train_ms:.3f} ms; process group destroyed")
 
 
 def main() -> int:
@@ -1083,6 +1408,12 @@ def main() -> int:
           "duplicate-heavy: device != native, spec")
     print(f"[11] duplicate-heavy: {assemble_device.last_n_fallback} of 50 orderings re-merged "
           "exactly on the host; equal to native and spec")
+
+    # -- phase 12: the breakage model, cli fit-model -------------------------
+    model = phase_model(dev)
+
+    # -- phase 13: the parallel layer on one card -----------------------------
+    phase_parallel(dev, record, model)
 
     print(f"[7] total {time.perf_counter() - t_start:.1f} s")
 

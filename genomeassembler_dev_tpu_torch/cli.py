@@ -6,12 +6,16 @@
   python -m genomeassembler_dev_tpu_torch.cli study-kmer-count  # scripts/01
   python -m genomeassembler_dev_tpu_torch.cli study-gc   # scripts/03
   python -m genomeassembler_dev_tpu_torch.cli study-velvet  # scripts/00
+  python -m genomeassembler_dev_tpu_torch.cli fit-model     # distil the table into the MLP
+  python -m genomeassembler_dev_tpu_torch.cli bench-scaling # sim+count step vs device count
 
 Segments come from --segments-fasta (the reference's SampledRefGenome
 contract) or a seeded synthetic store (--synthetic). Everything runs on
---device (default cuda); without a card the port stops rather than run on the
-CPU, which has to be asked for with --device cpu. Not ported yet, and absent
-here: study-plots, fit-model and bench-scaling.
+--device (default cuda; it takes the place of the JAX CLI's --platform);
+without a card the port stops rather than run on the CPU, which has to be
+asked for with --device cpu. bench-scaling runs on the ranks that torchrun
+started, or else on a one-rank group of its own. Not ported yet, and absent
+here: study-plots.
 """
 
 from __future__ import annotations
@@ -202,6 +206,62 @@ def cmd_study_gc(args):
     print(json.dumps({"csv": out}))
 
 
+def cmd_fit_model(args):
+    from genomeassembler_dev_tpu_torch.core.querytable import load_default_query_table
+    from genomeassembler_dev_tpu_torch.models import breakage_model as bm
+
+    dev = _device(args)
+    params, losses = bm.fit_to_table(
+        load_default_query_table(dev), k=args.kmer, steps=args.steps, hidden=args.hidden,
+        lr=args.lr, seed=args.seed, device=dev)
+    bm.save_params(args.out, params)
+    print(json.dumps({"checkpoint": args.out,
+                      "loss_first": float(losses[0]),
+                      "loss_last": float(losses[-1])}))
+
+
+def cmd_bench_scaling(args):
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from genomeassembler_dev_tpu_torch.core.encoding import encode_dna
+    from genomeassembler_dev_tpu_torch.core.querytable import load_default_query_table
+    from genomeassembler_dev_tpu_torch.parallel import multihost
+    from genomeassembler_dev_tpu_torch.parallel.scaling import measure_scaling
+    from genomeassembler_dev_tpu_torch.sim.segments import synthetic_genome
+
+    dev = _device(args)
+    with tempfile.TemporaryDirectory(prefix="bench_scaling_") as tmp:
+        own_group = not dist.is_initialized()
+        if own_group:
+            if "RANK" in os.environ:  # started by torchrun
+                multihost.initialize(device_type=dev.type)
+            else:
+                multihost.initialize(f"file://{os.path.join(tmp, 'store')}", 1, 0,
+                                     device_type=dev.type)
+        try:
+            if dev.type == "cuda":
+                dev = torch.device("cuda", torch.cuda.current_device())
+            world = dist.get_world_size()
+            counts = ([int(x) for x in args.devices.split(",")] if args.devices
+                      else [1 << i for i in range(world.bit_length()) if 1 << i <= world])
+            B = max(counts) * args.segments_per_device
+            genomes = np.stack([encode_dna(synthetic_genome(i, args.seq_len))
+                                for i in range(B)])
+            pts = measure_scaling(genomes, load_default_query_table("cpu").probs[8].numpy(),
+                                  args.read_len, args.draws_per_segment, counts, dev)
+            if dist.get_rank() == 0:
+                print(json.dumps([
+                    {"devices": p.n_devices, "reads_per_s": round(p.reads_per_s, 1),
+                     "efficiency": round(p.efficiency, 3)} for p in pts]))
+        finally:
+            if own_group:
+                dist.destroy_process_group()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="genomeassembler_dev_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -239,6 +299,29 @@ def main(argv=None):
     p = sub.add_parser("study-gc", help="GC dependency (scripts/03)")
     _add_common(p)
     p.set_defaults(fn=cmd_study_gc)
+
+    p = sub.add_parser("fit-model", help="distil the QueryTable into the MLP")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (cuda, cuda:1, cpu)")
+    p.add_argument("--kmer", type=int, default=8)
+    p.add_argument("--steps", type=int, default=500)
+    p.add_argument("--hidden", type=int, default=256)
+    p.add_argument("--lr", type=float, default=3e-3)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--out", default="./breakage_model.npz")
+    p.set_defaults(fn=cmd_fit_model)
+
+    p = sub.add_parser("bench-scaling", help="throughput vs device count")
+    p.add_argument("--device", default="cuda",
+                   help="torch device type of the ranks (cuda, cpu)")
+    p.add_argument("--devices", default=None,
+                   help="comma list of device counts (default: 1, 2, 4, ... up to the "
+                        "world size)")
+    p.add_argument("--segments-per-device", type=int, default=4)
+    p.add_argument("--seq-len", type=int, default=500)
+    p.add_argument("--read-len", type=int, default=12)
+    p.add_argument("--draws-per-segment", type=int, default=256)
+    p.set_defaults(fn=cmd_bench_scaling)
 
     args = ap.parse_args(argv)
     return args.fn(args)

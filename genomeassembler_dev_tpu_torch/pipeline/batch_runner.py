@@ -18,9 +18,14 @@ Stages 3 and 4 overlap: the worker merges segment b + 1 ... while the main
 thread packs and scores finished segments (the native merge's ctypes call
 releases the GIL). Each segment's result equals Assembler.run_experiment on
 it; only the schedule changes. Left out from the JAX runner: its background
-compile pool, the fused eval program (GA_FUSED_EVAL), the relay retry, its
-walk and dedup capacity checks (eager arrays are sized exactly) and the mesh,
-which comes with the parallel layer.
+compile pool, the fused eval program (GA_FUSED_EVAL), the relay retry, and its
+walk and dedup capacity checks (eager arrays are sized exactly).
+
+With a mesh (parallel/mesh.py), each rank runs stages 1-4 on its `seg` block
+of the batch; with a `read` axis above 1 the breakscore goes through
+parallel/sharding.py::make_breakscore_step (reads over `read`, table rows
+over `tp`); every rank then returns the whole batch's results, gathered over
+`seg`.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from genomeassembler_dev_tpu_torch.core.encoding import INVALID, encode_dna
 from genomeassembler_dev_tpu_torch.core.querytable import (
@@ -43,7 +49,7 @@ from genomeassembler_dev_tpu_torch.pipeline.assembler import (
     solution_columns)
 from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
 from genomeassembler_dev_tpu_torch.pipeline.velvet import EVAL_BUDGET_BYTES
-from genomeassembler_dev_tpu_torch.score.breakscore import breakscore
+from genomeassembler_dev_tpu_torch.score.breakscore import BreakScores, breakscore
 from genomeassembler_dev_tpu_torch.sim.reads import ReadSet, dedup_reads, generate_reads
 from genomeassembler_dev_tpu_torch.utils.timers import StageTimer
 
@@ -80,18 +86,51 @@ def run_experiments_batched(
     uniform: QueryTable | None = None,
     score_group: int = 8,
     verbose: bool = False,
+    mesh=None,
 ) -> list[ExperimentResult]:
     """One ExperimentResult per segment, as Assembler(cfg, device,
     table).run_experiment(segment) gives it. Segments must share one
-    length."""
+    length. With a DeviceMesh of (seg, read, tp) every rank of it calls this
+    with the same segments, whose count must divide by the seg axis, and
+    gets the same list back."""
     cfg = cfg.validate()
     device = torch.device(device)
     table = table if table is not None else load_default_query_table(device)
     if cfg.traversal != "standard":
         # the batched walk is the standard traversal's: any other runs the
         # serial Assembler, so a biased config never yields standard results
+        # (the mesh does not apply)
         asm = Assembler(cfg, device, table, verbose=verbose)
         return [asm.run_experiment(s) for s in segments]
+    if mesh is None:
+        return _run_standard(cfg, segments, device, table, uniform, score_group, verbose,
+                             breakscore)
+    from genomeassembler_dev_tpu_torch.parallel.mesh import axis_group, axis_size, block
+    from genomeassembler_dev_tpu_torch.parallel.sharding import make_breakscore_step
+
+    if mesh.get_coordinate() is None:
+        raise ValueError("this rank is not in the mesh")
+    score_rows = breakscore
+    if axis_size(mesh, "read") > 1:
+        step = make_breakscore_step(mesh["read", "tp"])
+
+        def score_rows(pm, pl, rc, rn, rv, probs, break_kmer):
+            return BreakScores(**step(pm, pl, rc, rn, rv, probs))
+    local = _run_standard(cfg, segments[block(len(segments), mesh, "seg")], device, table,
+                          uniform, score_group, verbose, score_rows)
+    group = axis_group(mesh, "seg")
+    if group is None:
+        return local
+    parts = [None] * axis_size(mesh, "seg")
+    dist.all_gather_object(parts, local, group=group)
+    return [res for part in parts for res in part]
+
+
+def _run_standard(cfg: ExperimentConfig, segments: list[str], device: torch.device,
+                  table: QueryTable, uniform: QueryTable | None, score_group: int,
+                  verbose: bool, score_rows) -> list[ExperimentResult]:
+    """The standard traversal's batch on one rank; `score_rows` is
+    breakscore or the read-sharded step."""
     if not segments:
         return []
     if len({len(s) for s in segments}) != 1:
@@ -146,7 +185,7 @@ def run_experiments_batched(
                 rv[gi, : rvalid.shape[0]] = rvalid
             pm = torch.from_numpy(pm_np).to(device)
             pl = torch.from_numpy(pl_np).to(device)
-            bs = breakscore(pm, pl, rc, rn, rv, table.combined, break_kmer=cfg.kmer)
+            bs = score_rows(pm, pl, rc, rn, rv, table.combined, break_kmer=cfg.kmer)
             rand, rand_nb, rand_nl = random_scores(bs, pl, uniform)
             # KS in chunks of rows, each row against its own segment's track
             path_freq = bs.path_freq.view(G * S, TOTAL)
