@@ -7,9 +7,10 @@ NVIDIA GPU.
       prefix_min.cu), all nvcc processes at once;
   [3] holds the Myers kernel against the plain DP, on the TPU kernel's test
       cases, on queries at the edges of its launch plan (strips, warps,
-      bands; alone and mixed in one launch) and at the study shapes, and
-      [3b] the prefix-min kernel against the same plain results and the
-      Myers kernel at every width;
+      bands; alone and mixed in one launch), on queries and targets with
+      ~5% N (code 255, which matches N: one warp, a block of warps, two
+      bands) and at the study shapes, and [3b] the prefix-min kernel against
+      the same plain results and the Myers kernel at every width;
   [3c] holds the histogram kernel against its plain version and the native
       C++ k-mer counter (k 2 to 9, int64 codes out of range, the parts'
       edges, the count study's four shapes) and times it beside
@@ -28,7 +29,12 @@ NVIDIA GPU.
       and the plain DP, times the Myers kernel and the plain DP at the
       velvet path's real shape, and the kernel on a repeat-heavy ensemble
       (256 mutated 2x copies of the segment, rows 0-3 against the plain DP),
-      with the prefix-min kernel equal to it on every row of both;
+      with the prefix-min kernel equal to it on every row of both; then a
+      repeat-heavy velvet experiment end to end (a 50 kb segment with
+      planted repeats, row 40:37, its dBG's unitigs as contigs): at least
+      two evaluation chunks, every solution's scores equal to an evaluate
+      with the chunks at other rows and the first 64 to their evaluate
+      alone;
   [9] runs `cli study-own --traversal biased` on 1 kb segments with planted
       repeats (rows 12:9, 16:13, 25:15) and checks every experiment against
       a host string-level greedy walk, the port's CPU run, the native engine,
@@ -52,7 +58,16 @@ NVIDIA GPU.
       lookup, both ring Levenshteins at one shard against K1 (timed), the
       batched runner with the mesh against mesh=None, and `cli bench-scaling
       --devices 1` at the study shape. K1's and K2's launches there join the
-      kernel record.
+      kernel record;
+ [14] `run --plots` on one study-shape experiment: the track and the
+      re-drawn breakpoints it plots, from the card, against the CPU plain
+      track and the experiment's own reads; the three figures are drawn
+      where matplotlib is installed, and a line says so where it is not;
+ [15] a device trace (utils/profiling.py) of one study-shape experiment with
+      its stages annotated, then one K2 and one K3 call: every K1, K2 and K3
+      launch must be a kernel event of its name launched inside its span;
+      prints the device busy share of the experiment's window, its top five
+      device operations and the trace file.
 
     python3 chip_smoke.py
 
@@ -98,6 +113,14 @@ BATCHED_ITERS = 16  # one batch of 16 segments a row
 MODEL_DIR = os.path.join(HERE, "build", "smoke_model")
 NCCL_STORE = os.path.join(HERE, "build", "smoke_parallel", "nccl_store")
 PARALLEL_SEGMENTS = 16  # the batched study's batch: 16 segments of 1 kb
+REPEAT_DIR = os.path.join(HERE, "build", "smoke_velvet_repeats")
+REPEAT_ROW = (40, 37)  # the velvet grid row with the fewest solutions on repeats
+REPEAT_ORDERINGS = 20000  # the velvet path's own (pipeline/velvet.py)
+UNITIG_READ = 60  # error-free reads that make the repeat segment's velvet contigs
+PLOTS_DIR = os.path.join(HERE, "build", "smoke_plots")
+TRACE_DIR = os.path.join(HERE, "build", "smoke_trace")
+KERNEL_NAMES = {"myers_levenshtein": "myers_kernel", "kmer_histogram": "histogram_kernel",
+                "prefix_min_levenshtein": "prefix_min_kernel"}  # in the kernels' symbols
 KERNELS = {  # name in the record: (csrc name, TPU kernel it replaces)
     "myers_levenshtein": ("myers", "genomeassembler_dev_tpu/ops/pallas/myers_kernel.py:58"),
     "kmer_histogram": ("histogram",
@@ -128,6 +151,27 @@ def rand_dna(rng, n: int) -> str:
     return "".join(rng.choice(list("ACGT"), size=n))
 
 
+def with_ns(rng, s: str, rate: float = 0.05) -> str:
+    """s with each base replaced by N at `rate`."""
+    return "".join("N" if rng.random() < rate else ch for ch in s)
+
+
+def non_acgt_cases(target: str) -> dict:
+    """{name: (queries, target)} whose N (code 255) must match N, as in the
+    plain DP and the spec: four strings, then queries and a target with ~5%
+    N at one warp, a block of warps (S 8) and two bands."""
+    cases = {"N strings": (["ACGTNNACG", "AAAAAA", "NNNN", "ACGTAAACGTTACAA"], "ACGTNNACGTTACNA")}
+    rng = np.random.default_rng(10)
+    n_target = with_ns(rng, target)
+    cases["N one warp"] = ([with_ns(rng, n_target[a : a + 200]) for a in range(0, 100, 10)]
+                           + [with_ns(rng, rand_dna(rng, 90)), ""], n_target)
+    cases["N block of warps"] = ([with_ns(rng, (n_target * 17)[:5000]),
+                                  with_ns(rng, n_target[7:290])], n_target)
+    cases["N two bands"] = ([with_ns(rng, (n_target * 467)[:140000]), with_ns(rng, n_target[:33]),
+                             ""], n_target)
+    return cases
+
+
 def mutate(rng, s: str, rate: float) -> str:
     """Substitutions, insertions and deletions at `rate` each."""
     out = []
@@ -151,6 +195,47 @@ def mutate_codes(rng, codes: np.ndarray, rate: float) -> np.ndarray:
     out = np.repeat(base, counts)
     out[np.cumsum(counts)[counts == 2] - 1] = rng.integers(0, 4, int((counts == 2).sum()))
     return out
+
+
+def slice_shape_args(dev):
+    """(queries, lengths, target) at the slice's shape: 512 solutions padded
+    to 2048 columns, real lengths 0..1030, against a 1 kb segment."""
+    from genomeassembler_dev_tpu_torch.core.encoding import encode_dna
+    from genomeassembler_dev_tpu_torch.pipeline.assembler import pack_strings
+
+    rng = np.random.default_rng(2)
+    segment = rand_dna(rng, 1000)
+    sols = [""] + [mutate(rng, segment[int(a):], 0.02)[:1030]
+                   for a in rng.integers(0, 600, 383)]
+    sols += [rand_dna(rng, int(n)) for n in rng.integers(1, 1031, 128)]
+    mat, lens = pack_strings(sols, l_multiple=2048)
+    check(mat.shape == (512, 2048), f"slice shape {mat.shape}")
+    return (torch.from_numpy(mat).to(dev), torch.from_numpy(lens).to(dev),
+            torch.from_numpy(encode_dna(segment)).to(dev))
+
+
+def hw_shape_args(dev):
+    """(queries, lengths, target) of a plain HW shape: 256 x 2048 random
+    queries against a random 50 kb target."""
+    rng = np.random.default_rng(3)
+    return (torch.from_numpy(rng.integers(0, 4, (256, 2048)).astype(np.uint8)).to(dev),
+            torch.full((256,), 2048, dtype=torch.int32, device=dev),
+            torch.from_numpy(rng.integers(0, 4, 50000).astype(np.uint8)).to(dev))
+
+
+def repeat_heavy_args(segment: str, target: torch.Tensor):
+    """(queries, lengths, target) of a repeat-heavy velvet ensemble on
+    target's device: 256 mutated ~2x copies of the segment, [256, 100,096]."""
+    from genomeassembler_dev_tpu_torch.core.encoding import encode_dna
+
+    rng = np.random.default_rng(6)
+    doubled = np.tile(encode_dna(segment), 2)
+    reps = [mutate_codes(rng, doubled, 0.003) for _ in range(256)]
+    mat = np.zeros((256, -(-max(map(len, reps)) // 128) * 128), np.uint8)
+    for i, r in enumerate(reps):
+        mat[i, : len(r)] = r
+    return (torch.from_numpy(mat).to(target.device),
+            torch.tensor([len(r) for r in reps], dtype=torch.int32, device=target.device), target)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -592,6 +677,303 @@ def phase_parallel(dev, record: dict, model: dict) -> None:
     print(f"[13] steps: train {train_ms:.3f} ms; process group destroyed")
 
 
+def phase_repeat_velvet(dev, record: dict) -> None:
+    """[8] a repeat-heavy velvet experiment end to end: run_velvet_study (as
+    `study-velvet` runs it) on one 50 kb segment with planted repeats at
+    REPEAT_ROW, on the contigs an error-free velvet run would give: the
+    unitigs of the segment's dBG at the row's k, which end at every repeat
+    and overlap by k - 1. The ensemble then merges into many solutions,
+    which IndustryAssembler.evaluate cuts into at least two chunks. Every
+    solution's scores must not depend on where the chunks fall: the run's
+    evaluate is held against one with the chunks at other rows, and its
+    first 64 rows against their evaluate alone."""
+    from genomeassembler_dev_tpu_torch.merge import native
+    from genomeassembler_dev_tpu_torch.ops import myers
+    from genomeassembler_dev_tpu_torch.ops.prefix_min import batched_levenshtein_prefix_min
+    from genomeassembler_dev_tpu_torch.pipeline import results as res_io
+    from genomeassembler_dev_tpu_torch.pipeline import velvet
+    from genomeassembler_dev_tpu_torch.pipeline.assembler import pack_strings, pad_reads
+    from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
+    from genomeassembler_dev_tpu_torch.pipeline.experiments import run_velvet_study
+    from genomeassembler_dev_tpu_torch.sim.reads import dedup_reads
+    from genomeassembler_dev_tpu_torch.sim.segments import (
+        read_fasta, synthetic_segment_store, write_fasta)
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(REPEAT_DIR, ignore_errors=True)
+    segs = synthetic_segment_store(1234, VELVET_LEN, 1, repeats=True)
+    segment = segs.seqs[0]
+    read_len, k = REPEAT_ROW
+    unitigs = native.contigs_from_reads_native(
+        [segment[i : i + UNITIG_READ] for i in range(VELVET_LEN - UNITIG_READ + 1)], k)
+    contigs_path = os.path.join(REPEAT_DIR, "contigs", "contigs_exp_1.fa")
+    write_fasta(contigs_path, {f"NODE_{j + 1}": c for j, c in enumerate(unitigs)})
+    base = ExperimentConfig(seq_len=VELVET_LEN, read_len=12, kmer=8, coverage_target=40.0,
+                            seed=1234, industry_standard=True,
+                            velvet_n_orderings=REPEAT_ORDERINGS)
+    seen = []
+    evaluate = velvet.IndustryAssembler.evaluate
+
+    def spy(self, solutions, rs, genome):
+        seen.append((self, solutions, rs, genome, evaluate(self, solutions, rs, genome)))
+        return seen[-1][-1]
+
+    velvet.IndustryAssembler.evaluate = spy
+    torch.cuda.synchronize()
+    myers.batched_levenshtein_myers.launches = 0
+    t0 = time.perf_counter()
+    run_velvet_study(REPEAT_DIR, segs,
+                     lambda asm, seg, ind: list(read_fasta(contigs_path).values()),
+                     dev, base=base, grid=(REPEAT_ROW,), total_iters=1)
+    torch.cuda.synchronize()
+    study_s = time.perf_counter() - t0
+    velvet.IndustryAssembler.evaluate = evaluate
+    chunks = myers.batched_levenshtein_myers.launches  # one launch a chunk
+    record["myers_levenshtein"]["launches"] += chunks
+    ((asm, sols, rs, genome, ev),) = seen
+    n = len(sols)
+    width = -(-max(map(len, sols)) // 128) * 128
+    n_reads = pad_reads(*dedup_reads(rs.codes, rs.valid), asm.config.read_chunk)[0].shape[0]
+    rows = velvet.eval_chunk_rows(width, n_reads, rs.track.shape[0])
+    check(chunks == -(-n // rows) >= 2,
+          f"repeat velvet: {n} solutions, {rows} rows a chunk, {chunks} chunks")
+    cfg = base.with_(read_len=read_len, dbg_kmer=k)
+    cols = res_io.load_result_columns(res_io.solutions_path(REPEAT_DIR, 1, cfg))
+    with open(res_io.stats_path(REPEAT_DIR, 1, cfg)) as f:
+        timings = json.load(f)["timings"]
+    row_of = {s: i for i, s in enumerate(sols)}
+    kept = [row_of[s] for s in cols["sequence"]]
+    check(len(kept) >= 1 and all(segment.find(s) != -1 for s in cols["sequence"])
+          and sum(segment.find(s) != -1 for s in sols) == len(kept), "repeat velvet: kept rows")
+    for col, key in (("lev_dist_vs_true", "lev"), ("kmer_breaks", "kmer_breaks"),
+                     ("bp_score_true", "bp_score"), ("stat_test_KS_true", "ks")):
+        check(np.array_equal(cols[col], ev[key][kept], equal_nan=key == "ks"),
+              f"repeat velvet: the table's {col} != its evaluate's")
+    check(bool((cols["lev_dist_vs_true"] == 0).all()), "repeat velvet: a kept row's HW distance")
+
+    budget = velvet.EVAL_BUDGET_BYTES
+    velvet.EVAL_BUDGET_BYTES = budget * 5 // 8
+    other = velvet.eval_chunk_rows(width, n_reads, rs.track.shape[0])
+    check(other % 64 == 0 and rows % other != 0 and -(-n // other) > chunks,
+          f"repeat velvet: {other} rows a chunk do not move the boundaries")
+    t0 = time.perf_counter()
+    ev_other = asm.evaluate(sols, rs, genome)
+    torch.cuda.synchronize()
+    other_s = time.perf_counter() - t0
+    velvet.EVAL_BUDGET_BYTES = budget
+    ev_64 = asm.evaluate(sols[:64], rs, genome)
+    exact = []
+    for key, got in ev.items():
+        for what, want, part in (("other chunks", ev_other[key], got),
+                                 ("the first 64 alone", ev_64[key], got[:64])):
+            if key in ("kmer_breaks", "lev"):
+                check(np.array_equal(part, want), f"repeat velvet {key}: {what}")
+            else:
+                check(np.allclose(part, want, rtol=RTOL, atol=0, equal_nan=True),
+                      f"repeat velvet {key}: {what}")
+                exact.append(np.array_equal(part, want, equal_nan=True))
+    mat, lens = pack_strings(sols[:64])
+    batched_levenshtein_prefix_min.launches = 0
+    k3 = batched_levenshtein_prefix_min(torch.from_numpy(mat).to(dev),
+                                        torch.from_numpy(lens).to(dev), genome, mode="HW")
+    check(batched_levenshtein_prefix_min.launches == 1, "repeat velvet: the prefix-min launch")
+    record["prefix_min_levenshtein"]["launches"] += batched_levenshtein_prefix_min.launches
+    check(np.array_equal(k3.cpu().numpy(), ev["lev"][:64]),
+          "repeat velvet: the first 64 HW distances != the prefix-min kernel")
+    phase_s = time.perf_counter() - t_phase
+    record["myers_levenshtein"]["repeat_velvet"] = {
+        "orderings": REPEAT_ORDERINGS, "unitigs": len(unitigs), "solutions": n,
+        "chunk_rows": rows, "chunks": chunks, "kept": len(kept), "study_s": study_s,
+        "timings_s": timings, "phase_s": phase_s}
+    print(f"[8] repeat-heavy velvet experiment, row {read_len}:{k} on a 50 kb repeat segment: "
+          f"{len(unitigs)} unitig contigs, {REPEAT_ORDERINGS} orderings -> "
+          f"{n} solutions (longest "
+          f"{width} columns), {chunks} evaluation chunks of {rows} rows (Myers launches "
+          f"{chunks}); {len(kept)} kept, each in the segment at HW distance 0; run_velvet_study "
+          f"{study_s:.3f} s, stage ms: " + ", ".join(
+              f"{name} {1e3 * t:.2f}" for name, t in timings.items()))
+    print(f"[8] repeat-heavy velvet: the {n} solutions' scores equal an evaluate in "
+          f"{-(-n // other)} chunks of {other} rows ({other_s:.3f} s) and the first 64 their "
+          f"evaluate alone (breaks and distances exact, floats rtol 2e-5, "
+          f"{'all bit-equal' if all(exact) else 'not all bit-equal'}); the first 64 HW "
+          f"distances equal the prefix-min kernel; phase {phase_s:.1f} s"
+          + (" (over 60 s)" if phase_s > 60 else ""))
+
+
+def phase_plots(dev, record: dict) -> None:
+    """[14] `run --plots` on one study-shape experiment (row 12:9, 1 kb) on
+    the card: the track and the re-drawn breakpoints it plots come from the
+    card, and are held against the CPU's plain track and the experiment's
+    own reads. The figures are drawn where matplotlib is installed."""
+    from contextlib import redirect_stdout
+    from importlib.util import find_spec
+    import io
+
+    from genomeassembler_dev_tpu_torch import cli
+    from genomeassembler_dev_tpu_torch.core.encoding import encode_dna
+    from genomeassembler_dev_tpu_torch.core.querytable import load_default_query_table
+    from genomeassembler_dev_tpu_torch.ops import myers
+    from genomeassembler_dev_tpu_torch.pipeline import experiments
+    from genomeassembler_dev_tpu_torch.pipeline.assembler import Assembler
+    from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
+    from genomeassembler_dev_tpu_torch.sim.reads import probability_track
+    from genomeassembler_dev_tpu_torch.sim.segments import synthetic_segment_store
+
+    shutil.rmtree(PLOTS_DIR, ignore_errors=True)
+    drawing = find_spec("matplotlib") is not None
+    drawn = []  # every ReadSet that Assembler.simulate returns in this phase
+    simulate = Assembler.simulate
+
+    def spy(self, genome, timer):
+        drawn.append(simulate(self, genome, timer))
+        return drawn[-1]
+
+    Assembler.simulate = spy
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    myers.batched_levenshtein_myers.launches = 0
+    t0 = time.perf_counter()
+    with redirect_stdout(out):
+        cli.main(["run", "--synthetic", "--seq-len", "1000", "--total-iters", "1", "--read-len",
+                  "12", "--dbg-kmer", "9", "--workdir", PLOTS_DIR, "--device", "cuda"]
+                 + (["--plots"] if drawing else []))
+    run_s = time.perf_counter() - t0
+    check(myers.batched_levenshtein_myers.launches == 1, "plots: the run's Myers launch")
+    record["myers_levenshtein"]["launches"] += 1
+    cfg = ExperimentConfig(seq_len=1000, read_len=12, dbg_kmer=9, kmer=8, coverage_target=40.0,
+                           seed=1234, n_orderings=10000)
+    segment = synthetic_segment_store(1234, 1000, 1).seqs[0]
+    track, positions = experiments.plot_inputs(Assembler(cfg, dev), segment)
+    Assembler.simulate = simulate
+    check(len(drawn) == (3 if drawing else 2), f"plots: {len(drawn)} read draws")
+    own = drawn[0].positions[drawn[0].valid].cpu().numpy()
+    for rs in drawn[1:]:
+        check(rs.positions.device.type == "cuda", "plots: the re-drawn reads are not the card's")
+        check(np.array_equal(rs.positions[rs.valid].cpu().numpy(), own),
+              "plots: re-drawn breakpoints != the experiment's reads")
+    check(np.array_equal(positions, own) and len(own) > 0, "plots: plot_inputs' breakpoints")
+    cpu_track = probability_track(torch.from_numpy(encode_dna(segment)),
+                                  load_default_query_table("cpu").probs[8], 8).numpy()
+    check(track.shape == cpu_track.shape == (993,) and np.allclose(track, cpu_track, rtol=RTOL,
+                                                                    atol=0),
+          "plots: the card's track != the CPU plain track")
+    print(f"[14] run row 12:9, 1 kb: the card's probability track ({track.shape[0]} windows) "
+          f"equals the CPU plain track within rtol 2e-5; the {len(own)} breakpoints re-drawn "
+          f"on the card equal the experiment's reads; {run_s:.3f} s for the command")
+    if not drawing:
+        print("[14] drawing not run: matplotlib is absent on this machine (the device part "
+              "above ran as --plots runs it)")
+        return
+    rec = json.loads(out.getvalue().strip().splitlines()[-1])
+    from matplotlib.image import imread
+
+    for path, name in zip(rec["plots"], ("ProbabilityTrack", "BreakpointHistogram",
+                                         "ScoresVsLevDist")):
+        check(os.path.basename(path).startswith(name + "_"), f"plots: {path}")
+        img = imread(path)
+        check(img.ndim == 3 and min(img.shape[:2]) > 100, f"plots: {path} {img.shape}")
+    print(f"[14] --plots drew {len(rec['plots'])} figures, each decodes: "
+          + ", ".join(os.path.basename(p) for p in rec["plots"]))
+
+
+def phase_trace(dev, record: dict, k2_args, k3_args) -> None:
+    """[15] a device trace (utils/profiling.py) of one study-shape experiment
+    with an annotation around each stage, then one K2 and one K3 call.
+    Every launch of K1, K2 and K3 must be a kernel event of that name whose
+    launch lies inside its annotation. Prints the device busy share of the
+    experiment's window, its top five device operations and the trace."""
+    from genomeassembler_dev_tpu_torch.core.encoding import encode_dna
+    from genomeassembler_dev_tpu_torch.ops import myers
+    from genomeassembler_dev_tpu_torch.ops.histogram import count_kmers_batched
+    from genomeassembler_dev_tpu_torch.ops.prefix_min import batched_levenshtein_prefix_min
+    from genomeassembler_dev_tpu_torch.pipeline.assembler import Assembler
+    from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
+    from genomeassembler_dev_tpu_torch.sim.segments import synthetic_genome
+    from genomeassembler_dev_tpu_torch.utils.profiling import annotate, trace
+    from genomeassembler_dev_tpu_torch.utils.timers import StageTimer
+
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    cfg = ExperimentConfig(seq_len=1000, read_len=12, dbg_kmer=9, coverage_target=40.0,
+                           kmer=8, seed=1234, n_orderings=10000)
+    asm = Assembler(cfg, dev)
+    segment = synthetic_genome(1000, 1000)  # [5]'s first experiment
+    want = asm.run_experiment(segment).columns  # warm, untraced
+    counters = {"myers_levenshtein": myers.batched_levenshtein_myers,
+                "kmer_histogram": count_kmers_batched,
+                "prefix_min_levenshtein": batched_levenshtein_prefix_min}
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    stages = ("simulate", "dBG", "merge", "evaluate")
+    with trace(TRACE_DIR):
+        with annotate("experiment"):
+            timer = StageTimer(dev, False)  # each stage ends in a synchronise
+            genome = torch.from_numpy(encode_dna(segment)).to(dev)
+            with annotate("simulate"):
+                rs = asm.simulate(genome, timer)
+            with annotate("dBG"):
+                contigs = asm.contigs(rs.codes, rs.valid, timer)
+            with annotate("merge"):
+                sols = asm.merge(contigs, timer)
+            with annotate("evaluate"):
+                cols = asm.score(sols, rs, genome, timer)
+        with annotate("K2"):
+            count_kmers_batched(*k2_args)
+        with annotate("K3"):
+            batched_levenshtein_prefix_min(*k3_args)
+        torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    check(cols["sequence"] == want["sequence"] and np.array_equal(
+        cols["lev_dist_vs_true"], want["lev_dist_vs_true"]), "trace: traced experiment != untraced")
+    (path,) = glob.glob(os.path.join(TRACE_DIR, "*.pt.trace.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation"}
+    check(set(stages) | {"experiment", "K2", "K3"} <= spans.keys(), f"trace: spans {list(spans)}")
+    launch_of = {e["args"]["correlation"]: e for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get(
+                     "args", {})}
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    found = {}
+    for name, symbol in KERNEL_NAMES.items():
+        span = spans[{"myers_levenshtein": "evaluate", "kmer_histogram": "K2",
+                      "prefix_min_levenshtein": "K3"}[name]]
+        mine = [e for e in device if e.get("cat") == "kernel" and symbol in e["name"]]
+        inside = [e for e in mine if span[0] <= launch_of.get(
+            e["args"].get("correlation"), {"ts": -1})["ts"] <= span[1]]
+        found[name] = len(inside)
+        check(launches[name] >= 1 and len(mine) == len(inside) == launches[name],
+              f"trace: {name}: {launches[name]} launches, {len(mine)} kernel events named "
+              f"{symbol}, {len(inside)} launched inside their span")
+        record[name]["traced_launches"] = launches[name]
+    lo, hi = spans["experiment"]
+    cuts = sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi)) for e in device
+                  if e["ts"] < hi and e["ts"] + e["dur"] > lo)
+    busy, end = 0.0, lo
+    for a, b in cuts:  # the union of the device's intervals
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_op: dict[str, float] = {}
+    for a, b, e in ((max(e["ts"], lo), min(e["ts"] + e["dur"], hi), e) for e in device):
+        if b > a:
+            by_op[e["name"]] = by_op.get(e["name"], 0.0) + b - a
+    top = sorted(by_op.items(), key=lambda kv: -kv[1])[:5]
+    print(f"[15] traced experiment (row 12:9, {len(sols)} solutions) equals its untraced run; "
+          f"kernel events inside their spans: " + ", ".join(
+              f"{KERNEL_NAMES[n]} {found[n]} of {launches[n]} launches" for n in found))
+    print(f"[15] device busy {busy / (hi - lo):.4f} of the experiment's {(hi - lo) / 1e3:.3f} ms "
+          f"window ({busy / 1e3:.3f} ms); stage spans ms: " + ", ".join(
+              f"{st} {(spans[st][1] - spans[st][0]) / 1e3:.3f}" for st in stages))
+    for name, us in top:
+        print(f"[15] top device op: {us / 1e3:.3f} ms  {name[:110]}")
+    print(f"[15] trace: {os.path.relpath(path, HERE)} ({os.path.getsize(path)} bytes)")
+    record["myers_levenshtein"]["trace"] = {
+        "busy_share": busy / (hi - lo), "window_ms": (hi - lo) / 1e3,
+        "top_ops_ms": [[name[:80], us / 1e3] for name, us in top], "file": path}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -687,21 +1069,12 @@ def main() -> int:
     cases["mixed 0..50048"] = ([""] + list(edge.values()), target)
     cases["two bands 140000"] = ([mutate(rng, (target * 467)[:140000], 0.02)[:140000],
                                   edge[33], ""], target)
+    cases.update(non_acgt_cases(target))
     for name, (queries, target) in cases.items():
         for mode in ("NW", "HW"):
             compare(name, to_dev(queries, target), mode)
 
-    # the slice's shape: 512 solutions padded to 2048 columns, real lengths
-    # 0..1030, against a 1 kb segment
-    rng = np.random.default_rng(2)
-    segment = rand_dna(rng, 1000)
-    sols = [""] + [mutate(rng, segment[int(a):], 0.02)[:1030]
-                   for a in rng.integers(0, 600, 383)]
-    sols += [rand_dna(rng, int(n)) for n in rng.integers(1, 1031, 128)]
-    mat, lens = pack_strings(sols, l_multiple=2048)
-    check(mat.shape == (512, 2048), f"slice shape {mat.shape}")
-    slice_args = (torch.from_numpy(mat).to(dev), torch.from_numpy(lens).to(dev),
-                  torch.from_numpy(encode_dna(segment)).to(dev))
+    slice_args = slice_shape_args(dev)
     for mode in ("NW", "HW"):
         compare("slice 512x2048x1000", slice_args, mode)
     k_ms = cuda_ms(lambda: myers.batched_levenshtein_myers(*slice_args, mode="NW"), 20)
@@ -714,11 +1087,7 @@ def main() -> int:
     record["myers_levenshtein"].update(ms=k_ms, plain_ms=p_ms, bound_ms=k_bound,
                                        bound_by="operations", library_ms=None)
 
-    # a plain HW shape: 256 x 2048 queries against a 50 kb target
-    rng = np.random.default_rng(3)
-    hw_args = (torch.from_numpy(rng.integers(0, 4, (256, 2048)).astype(np.uint8)).to(dev),
-               torch.full((256,), 2048, dtype=torch.int32, device=dev),
-               torch.from_numpy(rng.integers(0, 4, 50000).astype(np.uint8)).to(dev))
+    hw_args = hw_shape_args(dev)
     compare("HW 256x2048x50000", hw_args, "HW")
     hk_ms = cuda_ms(lambda: myers.batched_levenshtein_myers(*hw_args, mode="HW"), 3)
     hp_ms = cuda_ms(lambda: batched_levenshtein(*hw_args, mode="HW"), 1)
@@ -796,6 +1165,7 @@ def main() -> int:
     read_strs = [["".join("ACGTN"[min(c, 4)] for c in r) for r in seg] for seg in reads]
     native_rows = np.stack([native.count_kmers_native(seg, 8) for seg in read_strs])
     hist_case("B 256 x N 16665, k 8", codes, valid, 4**8, native_rows)
+    k2_args = (codes, valid, 4**8)  # [15] traces one call at this shape
     # the library call for the same function: one bincount of row * bins +
     # code, its flat index prepared outside the timed call
     flat = (torch.arange(256, device=dev)[:, None] * 4**8 + codes.long())[valid]
@@ -1161,14 +1531,7 @@ def main() -> int:
 
     # a repeat-heavy velvet ensemble: 256 mutated ~2x copies of the segment,
     # HW against it; K1 on all rows, the plain DP on rows 0-3 alone
-    rng = np.random.default_rng(6)
-    doubled = np.tile(encode_dna(segment), 2)
-    reps = [mutate_codes(rng, doubled, 0.003) for _ in range(256)]
-    mat = np.zeros((256, -(-max(map(len, reps)) // 128) * 128), np.uint8)
-    for i, r in enumerate(reps):
-        mat[i, : len(r)] = r
-    rargs = (torch.from_numpy(mat).to(dev),
-             torch.tensor([len(r) for r in reps], dtype=torch.int32, device=dev), target)
+    rargs = repeat_heavy_args(segment, target)
     outs = []
     rk_ms = cuda_ms(lambda: outs.append(myers.batched_levenshtein_myers(*rargs, mode="HW")), 1)
     t0 = time.time()
@@ -1181,7 +1544,7 @@ def main() -> int:
     rec["max_abs_err"] = max(rec["max_abs_err"], max_err(got, want))
     check(torch.equal(got, want), "repeat-heavy shape: kernel != plain DP on rows 0-3")
     check(bool((outs[0] >= rargs[1] - VELVET_LEN).all()), "repeat-heavy shape: distances")
-    print(f"[8] repeat-heavy shape {tuple(mat.shape)} x {VELVET_LEN} HW: kernel "
+    print(f"[8] repeat-heavy shape {tuple(rargs[0].shape)} x {VELVET_LEN} HW: kernel "
           f"{rk_ms:.3f} ms for 256 rows; rows 0-3 {got.tolist()} equal to the plain DP "
           f"({rp_s:.1f} s on those rows)")
     rec["repeat_heavy_ms"] = rk_ms
@@ -1196,6 +1559,8 @@ def main() -> int:
     print(f"[8] repeat-heavy shape: prefix-min kernel {r3_ms:.3f} ms (bound "
           f"{rec['repeat_heavy_bound_ms']:.3f} ms), equal to Myers on all 256 rows; Myers "
           f"bound {lev_bound_ms(rargs[1], VELVET_LEN, 'words'):.4f} ms")
+
+    phase_repeat_velvet(dev, record)
 
     # -- phase 9: the biased traversal, cli study-own --traversal biased ------
     shutil.rmtree(BIASED_DIR, ignore_errors=True)
@@ -1414,6 +1779,12 @@ def main() -> int:
 
     # -- phase 13: the parallel layer on one card -----------------------------
     phase_parallel(dev, record, model)
+
+    # -- phase 14: --plots on the card ----------------------------------------
+    phase_plots(dev, record)
+
+    # -- phase 15: the device trace -------------------------------------------
+    phase_trace(dev, record, k2_args, slice_args)
 
     print(f"[7] total {time.perf_counter() - t_start:.1f} s")
 

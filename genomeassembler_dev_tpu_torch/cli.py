@@ -6,6 +6,7 @@
   python -m genomeassembler_dev_tpu_torch.cli study-kmer-count  # scripts/01
   python -m genomeassembler_dev_tpu_torch.cli study-gc   # scripts/03
   python -m genomeassembler_dev_tpu_torch.cli study-velvet  # scripts/00
+  python -m genomeassembler_dev_tpu_torch.cli study-plots STUDY_DIR...  # a study's figures
   python -m genomeassembler_dev_tpu_torch.cli fit-model     # distil the table into the MLP
   python -m genomeassembler_dev_tpu_torch.cli bench-scaling # sim+count step vs device count
 
@@ -13,9 +14,11 @@ Segments come from --segments-fasta (the reference's SampledRefGenome
 contract) or a seeded synthetic store (--synthetic). Everything runs on
 --device (default cuda; it takes the place of the JAX CLI's --platform);
 without a card the port stops rather than run on the CPU, which has to be
-asked for with --device cpu. bench-scaling runs on the ranks that torchrun
-started, or else on a one-rank group of its own. Not ported yet, and absent
-here: study-plots.
+asked for with --device cpu. --plots on run, study-own and study-all draws
+each experiment's diagnostics (matplotlib; without it the command stops
+before any experiment). study-plots reads a study's CSVs and touches no
+device. bench-scaling runs on the ranks that torchrun started, or else on a
+one-rank group of its own.
 """
 
 from __future__ import annotations
@@ -51,7 +54,9 @@ def _add_common(p):
     p.add_argument("--total-iters", type=int, default=10)
     p.add_argument("--verbose", action="store_true")
     p.add_argument("--plots", action="store_true",
-                   help="per-experiment diagnostic plots (not ported yet)")
+                   help="emit per-experiment diagnostic plots "
+                        "(probability track, breakpoint histogram, "
+                        "score-vs-Levenshtein boxplots)")
 
 
 def _add_study(p):
@@ -116,16 +121,23 @@ def _own_study(args, dev):
 def cmd_run(args):
     from genomeassembler_dev_tpu_torch.pipeline import results as res_io
     from genomeassembler_dev_tpu_torch.pipeline.assembler import Assembler
-    from genomeassembler_dev_tpu_torch.pipeline.experiments import refuse_unported
+    from genomeassembler_dev_tpu_torch.pipeline.experiments import emit_experiment_plots
+    from genomeassembler_dev_tpu_torch.utils.plots import require_matplotlib
 
-    refuse_unported(plots=args.plots)
+    if args.plots:
+        require_matplotlib()
     dev = _device(args)
     segs = _segments(args)
     cfg = _config(args)
-    res = Assembler(cfg, dev, verbose=args.verbose).run_experiment(segs.seqs[args.ind - 1])
+    asm = Assembler(cfg, dev, verbose=args.verbose)
+    res = asm.run_experiment(segs.seqs[args.ind - 1])
     path = res_io.save_result(args.workdir, args.ind, cfg, res)
-    print(json.dumps({"solutions": res.n_solutions, "csv": path,
-                      "stats": {k: v for k, v in res.stats.items() if k != "genome_seq"}}))
+    out = {"solutions": res.n_solutions, "csv": path,
+           "stats": {k: v for k, v in res.stats.items() if k != "genome_seq"}}
+    if args.plots:
+        out["plots"] = emit_experiment_plots(args.workdir, args.ind, asm, res,
+                                             segs.seqs[args.ind - 1])
+    print(json.dumps(out))
 
 
 def cmd_study_own(args):
@@ -204,6 +216,15 @@ def cmd_study_gc(args):
 
     out = run_gc_study(args.workdir, _segments(args), _config(args), args.total_iters)
     print(json.dumps({"csv": out}))
+
+
+def cmd_study_plots(args):
+    from genomeassembler_dev_tpu_torch.utils.plots import study_plots
+
+    made = []
+    for d in args.study_dirs:
+        made += study_plots(d, top_frac=args.top_frac)
+    print(json.dumps({"figures": made}))
 
 
 def cmd_fit_model(args):
@@ -299,6 +320,15 @@ def main(argv=None):
     p = sub.add_parser("study-gc", help="GC dependency (scripts/03)")
     _add_common(p)
     p.set_defaults(fn=cmd_study_gc)
+
+    p = sub.add_parser("study-plots",
+                       help="render the aggregated figure families from a "
+                            "study's results_summary/results_all CSVs "
+                            "(scripts/02_…:129-546, 00_…:129-169)")
+    p.add_argument("study_dirs", nargs="+",
+                   help="IndustryModel_* dirs holding the study CSVs")
+    p.add_argument("--top-frac", type=float, default=0.05)
+    p.set_defaults(fn=cmd_study_plots)
 
     p = sub.add_parser("fit-model", help="distil the QueryTable into the MLP")
     p.add_argument("--device", default="cuda",

@@ -32,12 +32,16 @@
 // (Peq) of the lane's words, indexed by the target code, in shared memory
 // laid out [word slot][code][lane] so that a warp's loads hit 32 banks; the
 // lane's S characters move through a 3-bit-per-slot shift register, and the
-// new one is loaded one step ahead. A step where a word of the warp lies
-// outside the target is masked; the steps between run unmasked. A query
-// wider than the block's lanes x S words runs in bands of that many words,
-// one after the other: the band's last word writes its hout for every
-// character to a [B, N] int8 hand-off row that the next band's first word
-// reads as its hin.
+// new one is loaded one step ahead. Equal codes match, as in the plain DP:
+// A, C, G, T and the invalid base 255 (N) each have a Peq row, and a sixth,
+// empty row stands for a character outside the target. The codes 4-254,
+// which the encoding never produces, never reach the kernel: ops/myers.py
+// refuses them, since a target code there would read the N row. A step
+// where a word of the warp lies outside the target is masked; the steps
+// between run unmasked. A query wider than the block's lanes x S words runs
+// in bands of that many words, one after the other: the band's last word
+// writes its hout for every character to a [B, N] int8 hand-off row that
+// the next band's first word reads as its hin.
 //
 // What bounds it: instruction issue and the step's barrier. A word step is
 // ~20 integer instructions (its chain of ~7 dependent ones no longer
@@ -58,8 +62,10 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kCodes = 5;  // Peq rows: A, C, G, T and any other code (matches nothing)
-constexpr uint32_t kNoChars = 0x24924924u;  // code 4 in every 3-bit slot
+constexpr int kCodes = 6;  // Peq rows: A, C, G, T, 255 (N) and outside the target
+constexpr uint32_t kInvalid = 255u;  // core/encoding.py's code of a non-ACGT base
+constexpr uint32_t kOutside = 5u;    // the Peq row that matches nothing
+constexpr uint32_t kNoChars = 0x2db6db6du;  // kOutside in every 3-bit slot
 
 // A query's threads at S words a lane, its template's __launch_bounds__:
 // S 1, 2 and 4 serve queries of up to 128 words on one warp; S 8 a block of
@@ -118,17 +124,18 @@ myers_kernel(const uint8_t* __restrict__ queries,  // [B, M]
 #pragma unroll
       for (int k = 0; k < S; ++k) {
         const int base = 32 * (w0 + gl * S + k);
-        uint32_t e0 = 0u, e1 = 0u, e2 = 0u, e3 = 0u;
+        uint32_t e0 = 0u, e1 = 0u, e2 = 0u, e3 = 0u, en = 0u;
         if (gl < used) {
 #pragma unroll
           for (int b = 0; b < 32; ++b) {
             const int p = base + b;
-            const uint32_t c = p < qlen ? qrow[p] : 4u;
+            const uint32_t c = p < qlen ? qrow[p] : kOutside;  // past qlen: no row bit
             const uint32_t bit = 1u << b;
             e0 |= c == 0 ? bit : 0u;
             e1 |= c == 1 ? bit : 0u;
             e2 |= c == 2 ? bit : 0u;
             e3 |= c == 3 ? bit : 0u;
+            en |= c == kInvalid ? bit : 0u;
           }
         }
         uint32_t* row = peq + k * kCodes * lanes;
@@ -136,7 +143,8 @@ myers_kernel(const uint8_t* __restrict__ queries,  // [B, M]
         row[lanes] = e1;
         row[2 * lanes] = e2;
         row[3 * lanes] = e3;
-        row[4 * lanes] = 0u;
+        row[4 * lanes] = en;
+        row[kOutside * lanes] = 0u;
         vp[k] = ~0u;
         vn[k] = 0u;
         hp[k] = 0u;
@@ -153,9 +161,9 @@ myers_kernel(const uint8_t* __restrict__ queries,  // [B, M]
       const int hin0 = hw ? 0 : 1;  // top-row delta as a code: +1 NW, 0 HW
 
       uint32_t chars = kNoChars;  // slot k's code in bits 3k..3k+2
-      auto code_at = [&](int i) -> uint32_t {  // 4 outside the target
+      auto code_at = [&](int i) -> uint32_t {  // the Peq row of target[i]: 255 -> 4
         const uint32_t c = __ldg(target + min(max(i, 0), N - 1));
-        return static_cast<unsigned>(i) < static_cast<unsigned>(N) ? min(c, 4u) : 4u;
+        return static_cast<unsigned>(i) < static_cast<unsigned>(N) ? min(c, 4u) : kOutside;
       };
       uint32_t c_next = code_at(-first);
       int hb_next = (gl == 0 && band > 0) ? hrow[0] : hin0;
@@ -263,7 +271,7 @@ extern "C" int gadev_myers_max_lanes(int S) {
 // are device pointers on `device`; the caller owns every buffer. The plan
 // (ops/myers.py::launch_plan): S words a lane, `lanes` threads a query, one
 // block a query (a multiple of 32, at most gadev_myers_max_lanes(S)), dynamic
-// shared bytes: 4 x (2 x lanes / 32 + S x 5 x lanes) at least. `hbuf` is a
+// shared bytes: 4 x (2 x lanes / 32 + S x 6 x lanes) at least. `hbuf` is a
 // [B, N] int8 buffer when a query can exceed lanes x S words, else null.
 extern "C" int gadev_myers_launch(const void* queries, const void* qlens,
                                   const void* target, void* out, void* hbuf, int B,

@@ -42,6 +42,9 @@ from genomeassembler_dev_tpu_torch.core.encoding import encode_dna
 from genomeassembler_dev_tpu_torch.core.rng import shuffle_orderings
 from genomeassembler_dev_tpu_torch.spec.reference_semantics import merge_one_ordering
 
+# pre16/suf16 hold a contig's first and last 16 bases, so the merge tests
+# overlaps k <= dbg_kmer - 1 of at most 16 bases, as the JAX module does
+MAX_DBG_KMER = 17
 _P1 = np.uint32(1000003)
 _P2 = np.uint32(805306457)
 _M32 = 0xFFFFFFFF
@@ -174,7 +177,11 @@ def assemble_device(contigs: list[str], dbg_kmer: int, seed: int, n_orderings: i
     """The ensemble merge on `device`; the contract of
     merge.native.assemble_native: deduplicated solutions sorted by
     (-length, lexicographic). `assemble_device.last_n_fallback` is the number
-    of orderings re-merged exactly on the host in the last call."""
+    of orderings re-merged exactly on the host in the last call. Raises
+    for dbg_kmer above MAX_DBG_KMER."""
+    if dbg_kmer > MAX_DBG_KMER:
+        raise ValueError(f"the device merge takes dbg_kmer <= {MAX_DBG_KMER} (overlaps of at "
+                         f"most 16 bases), not {dbg_kmer}")
     assemble_device.last_n_fallback = 0
     if not contigs:
         return []

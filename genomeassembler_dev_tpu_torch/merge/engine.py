@@ -5,8 +5,9 @@ shuffled ordering ensemble -> merged, deduplicated solutions sorted by
 Backends: "native" (the threaded C++ engine, merge/native.py), "device" (the
 ensemble on a torch device, merge/device.py), "spec" (the string-level spec)
 and "auto". Auto follows the JAX package's crossover table and picks the
-device merge only when the merge's device is CUDA; otherwise native. There is
-no spec fallback: the native engine builds or raises.
+device merge only when the merge's device is CUDA and dbg_kmer is within the
+device merge's MAX_DBG_KMER; otherwise native. There is no spec fallback: the
+native engine builds or raises.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from genomeassembler_dev_tpu_torch.merge import native
-from genomeassembler_dev_tpu_torch.merge.device import assemble_device
+from genomeassembler_dev_tpu_torch.merge.device import MAX_DBG_KMER, assemble_device
 from genomeassembler_dev_tpu_torch.spec import reference_semantics as spec
 
 
@@ -36,10 +37,12 @@ def assemble_solutions(contigs: list[str], dbg_kmer: int, seed: int,
                        n_threads: int | None = None, device="cpu") -> list[str]:
     """Merge the shuffled ordering ensemble of `contigs` into solutions,
     sorted by (-length, lexicographic). The device backend runs on
-    `device`; auto takes it only where `device` is CUDA."""
+    `device`; auto takes it only where `device` is CUDA and dbg_kmer at most
+    MAX_DBG_KMER (the velvet grid's rows 25:19 and 40:37 merge natively)."""
     if backend == "auto":
-        backend = preferred_backend(len(contigs), n_orderings, True,
-                                    torch.device(device).type == "cuda")
+        backend = preferred_backend(
+            len(contigs), n_orderings, True,
+            torch.device(device).type == "cuda" and dbg_kmer <= MAX_DBG_KMER)
     if backend == "native":
         return native.assemble_native(contigs, dbg_kmer, seed, n_orderings, n_threads)
     if backend == "device":

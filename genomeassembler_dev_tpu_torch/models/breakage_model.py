@@ -109,7 +109,7 @@ class BreakageMLP(nn.Module):
         return self.readout(self.layer2(self.layer1(feats)))
 
 
-def params_from_numpy(arrays: dict, device="cpu") -> BreakageMLP:
+def params_from_numpy(arrays: dict, device="cuda") -> BreakageMLP:
     """A model holding the given float32 arrays (e.g. the JAX package's
     parameters as numpy arrays, or one tp shard of them), shapes and layout
     unchanged."""
@@ -126,7 +126,7 @@ def params_to_numpy(model: BreakageMLP) -> dict[str, np.ndarray]:
 
 
 def init_params(generator: torch.Generator, k: int = 8, hidden: int = 256,
-                device="cpu") -> BreakageMLP:
+                device="cuda") -> BreakageMLP:
     """He-normal weights (scales sqrt(2/d_in), sqrt(2/hidden)), zero biases,
     drawn from `generator`, which must live on `device`."""
     d_in = 4 * k
@@ -176,7 +176,7 @@ def save_params(path: str, params: BreakageMLP) -> None:
     np.savez_compressed(path, **params_to_numpy(params))
 
 
-def load_params(path: str, device="cpu") -> BreakageMLP:
+def load_params(path: str, device="cuda") -> BreakageMLP:
     with np.load(path) as d:
         return params_from_numpy({k: d[k] for k in d.files}, device)
 

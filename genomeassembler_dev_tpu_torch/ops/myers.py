@@ -10,6 +10,13 @@ one query's words as a wavefront over a warp or a block of lanes, with
 VP/VN in registers and the match masks in shared memory; `launch_plan`
 sizes that from the batch and the query width. What bounds the kernel on
 the card is described at the top of csrc/myers.cu.
+
+Codes are core/encoding.py's: 0-3 and 255 for any non-ACGT base. Equal
+codes match, so N matches N, as in the plain DP and the spec. The wrapper
+refuses a target code in 4-254 on either device: the kernel's match masks
+have no row for it and would read the N row. A query code there needs no
+check: it sets no match bit, and against a target of 0-3 and 255 the
+plain DP matches it nowhere either.
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ MAX_LANES = {1: 32, 2: 32, 4: 32, 8: 512}
 # (224 lanes) took 21.1 ms, S 4 (416 lanes) 24.6 ms and S 2 (800 lanes)
 # 28.8 ms on an H100 80GB HBM3 at 700 W
 BLOCK_WORDS_PER_LANE = 8
-PEQ_CODES = 5  # match-mask rows a word keeps: A, C, G, T and any other code
+PEQ_CODES = 6  # match-mask rows a word keeps: A, C, G, T, 255 (N) and outside the target
 
 
 class MyersPlan(NamedTuple):
@@ -81,18 +88,28 @@ def _declare(lib: ctypes.CDLL) -> None:
                            f"assumes {MAX_LANES}")
 
 
+def _foreign_codes(target: torch.Tensor) -> torch.Tensor:
+    """0-d bool: a code in 4-254 in the target."""
+    return ((target > 3) & (target < 255)).any()
+
+
+FOREIGN_CODES = "target codes 4-254: the Myers kernel takes 0-3 and 255 (core/encoding.py)"
+
+
 def batched_levenshtein_myers(queries: torch.Tensor, query_lens: torch.Tensor,
                               target: torch.Tensor, mode: str = "NW") -> torch.Tensor:
-    """Edit distance of each query [B, M] (uint8 codes, its first
-    query_lens[b] positions count) vs one exact-length target [N] (uint8).
-    NW: global; HW: infix. An empty query gives N in NW and 0 in HW.
-    Returns [B] int32."""
+    """Edit distance of each query [B, M] (uint8 codes 0-3 and 255, its
+    first query_lens[b] positions count) vs one exact-length target [N]
+    (uint8, the same codes). NW: global; HW: infix. An empty query gives N
+    in NW and 0 in HW. Returns [B] int32."""
     if mode not in ("NW", "HW"):
         raise ValueError(mode)
     devices = {queries.device, query_lens.device, target.device}
     if len(devices) != 1:
         raise ValueError(f"inputs on several devices: {devices}")
     if queries.device.type == "cpu":
+        if bool(_foreign_codes(target)):
+            raise ValueError(FOREIGN_CODES)
         return batched_levenshtein(queries, query_lens, target, mode=mode)
     if queries.device.type != "cuda":
         raise ValueError(f"no Myers kernel for device {queries.device}")
@@ -109,8 +126,13 @@ def batched_levenshtein_myers(queries: torch.Tensor, query_lens: torch.Tensor,
     if not (queries.is_contiguous() and query_lens.is_contiguous()
             and target.is_contiguous()):
         raise ValueError("queries, query_lens and target must be contiguous")
-    if B and int(query_lens.max()) > M:
-        raise ValueError(f"a query length exceeds the query width {M}")
+    if B:  # one read-back for both checks
+        longest, foreign = torch.stack([
+            query_lens.max(), _foreign_codes(target).to(torch.int32)]).tolist()
+        if longest > M:
+            raise ValueError(f"a query length exceeds the query width {M}")
+        if foreign:
+            raise ValueError(FOREIGN_CODES)
     N = target.shape[0]
     W = max(1, -(-M // 32))
     plan = launch_plan(W)

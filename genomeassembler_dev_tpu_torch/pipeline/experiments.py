@@ -14,11 +14,12 @@
                          grid on externally assembled contigs.
 
 Plot generation is replaced by the CSV outputs the plots were drawn from
-(SURVEY.md §7.4); any plotting stack can consume them.
+(SURVEY.md §7.4); any plotting stack can consume them. `plots=True` adds
+the per-experiment diagnostics (emit_experiment_plots), and
+utils/plots.py::study_plots draws a study's figures from its CSVs.
 
 Mirrors genomeassembler_dev_tpu/pipeline/experiments.py on an explicit
-device. Not ported yet: the per-experiment plots (`plots=True`), which
-raise.
+device.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from genomeassembler_dev_tpu_torch.pipeline.batch_runner import run_experiments_
 from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
 from genomeassembler_dev_tpu_torch.sim.reads_io import save_read_fastas
 from genomeassembler_dev_tpu_torch.sim.segments import SegmentStore
+from genomeassembler_dev_tpu_torch.utils.plots import require_matplotlib
 from genomeassembler_dev_tpu_torch.utils.timers import StageTimer
 
 
@@ -74,14 +76,6 @@ class StudyReport:
     n_skipped: int
 
 
-def refuse_unported(plots: bool = False) -> None:
-    """Raise for the options whose paths are not ported yet."""
-    if plots:
-        raise NotImplementedError(
-            "per-experiment plots are not ported: the port carries no "
-            "matplotlib (ROADMAP.md Queue 1, item 3)")
-
-
 def run_own_study(
     workdir: str,
     segments: SegmentStore,
@@ -103,9 +97,12 @@ def run_own_study(
     the reference's file-per-experiment resume contract. With batched=True
     the device stages run across seg_batch segments at a time
     (pipeline/batch_runner.py; identical outputs, far fewer launches), and
-    no read FASTAs are written, as in the JAX package.
+    no read FASTAs are written, as in the JAX package. plots=True draws each
+    experiment's diagnostics (emit_experiment_plots); without matplotlib it
+    raises before any experiment runs.
     """
-    refuse_unported(plots)
+    if plots:
+        require_matplotlib()
     base = base or ExperimentConfig(
         seq_len=1000, coverage_target=40.0, kmer=8, seed=1234
     )
@@ -119,6 +116,7 @@ def run_own_study(
         pending = [i for i in range(1, total_iters + 1)
                    if not res_io.experiment_done(workdir, i, cfg)]
         n_skip += total_iters - len(pending)
+        asm = Assembler(cfg, device, table, verbose=verbose)
         if batched:
             for lo in range(0, len(pending), seg_batch):
                 chunk = pending[lo : lo + seg_batch]
@@ -130,14 +128,17 @@ def run_own_study(
                                                   verbose=verbose)
                 for i, res in zip(chunk, results):
                     res_io.save_result(workdir, i, cfg, res)
+                    if plots:
+                        emit_experiment_plots(workdir, i, asm, res, segments.seqs[i - 1])
                     n_run += 1
             continue
-        asm = Assembler(cfg, device, table, verbose=verbose)
         for i in pending:
             res = asm.run_experiment(segments.seqs[i - 1])
             res_io.save_result(workdir, i, cfg, res)
             if cfg.save_read_files:
                 _save_reads(workdir, i, asm, segments)
+            if plots:
+                emit_experiment_plots(workdir, i, asm, res, segments.seqs[i - 1])
             n_run += 1
 
     if base.save_read_files:
@@ -187,6 +188,37 @@ def _save_reads(workdir: str, ind: int, asm: Assembler, segments: SegmentStore):
         workdir, ind, asm.config, rs.codes.cpu().numpy(), rs.valid.cpu().numpy(),
         rs.positions.cpu().numpy(), seg, segments.names[ind - 1],
     )
+
+
+def plot_inputs(asm: Assembler, segment: str) -> tuple[np.ndarray, np.ndarray]:
+    """The device part of an experiment's diagnostics, as host arrays: the
+    segment's breakage-probability track (sim/reads.py::probability_track at
+    the config's kmer) and the breakpoint positions of the valid reads,
+    re-drawn with Assembler.simulate from the experiment's seed on the
+    Assembler's device, as _save_reads does. They are the positions the
+    experiment drew, serial or batched."""
+    rs = asm.simulate(torch.from_numpy(encode_dna(segment)).to(asm.device),
+                      StageTimer(asm.device, verbose=False))
+    return rs.track.cpu().numpy(), rs.positions[rs.valid].cpu().numpy()
+
+
+def emit_experiment_plots(workdir: str, ind: int, asm: Assembler, res,
+                          segment: str) -> list[str]:
+    """The reference's per-experiment PDF diagnostics, behind a flag
+    (lib/DeNovoAssembler.R:485-563 score boxplots; lib/GenerateReads.R:261-345
+    probability track + breakpoint histogram), under the JAX package's file
+    names; returns the three paths."""
+    from genomeassembler_dev_tpu_torch.utils import plots
+
+    d = res_io.exp_dir(workdir, ind)
+    ps = asm.config.param_string()
+    track, positions = plot_inputs(asm, segment)
+    return [
+        plots.plot_probability_track(track, os.path.join(d, f"ProbabilityTrack{ps}.png")),
+        plots.plot_breakpoint_histogram(positions, asm.config.seq_len,
+                                        os.path.join(d, f"BreakpointHistogram{ps}.png")),
+        plots.plot_score_vs_levdist(res.columns, os.path.join(d, f"ScoresVsLevDist{ps}.png")),
+    ]
 
 
 def top_fraction_contrast(values: np.ndarray, frac: float = 0.05,

@@ -167,3 +167,30 @@ def test_engine_backends_agree(name):
     with pytest.raises(ValueError, match="unknown backend"):
         tengine.assemble_solutions(contigs, k, seed, n, backend="gpu")
     assert tengine.preferred_backend(len(contigs), 10000, True, False) == "native"
+
+
+@pytest.mark.parametrize("dbg_kmer", [17, 18, 37])
+def test_auto_keeps_long_overlaps_off_the_device_merge(dbg_kmer, monkeypatch):
+    """The device merge packs 16 bases at a contig's ends, so it takes
+    dbg_kmer up to 17 and raises above; on CUDA, auto sends a larger
+    dbg_kmer (the velvet grid's rows 25:19 and 40:37, with 128 unitigs and
+    more on repeat segments) to the native engine."""
+    rng = np.random.default_rng(dbg_kmer)
+    seg = "".join(rng.choice(list("ACGT"), 600))
+    contigs = [seg[lo : lo + 60] for lo in range(0, 540, 60 - (dbg_kmer - 1))]
+    asked = []
+
+    def spy(n_contigs, n_orderings, native_ok, accelerator_ok):
+        asked.append(accelerator_ok)
+        return "native"
+
+    monkeypatch.setattr(tengine, "preferred_backend", spy)
+    got = tengine.assemble_solutions(contigs, dbg_kmer, 3, 40, device="cuda")
+    assert asked == [dbg_kmer <= 17]
+    assert got == tengine.assemble_solutions(contigs, dbg_kmer, 3, 40, backend="spec")
+    if dbg_kmer > 17:
+        with pytest.raises(ValueError, match="dbg_kmer <= 17"):
+            tengine.assemble_solutions(contigs, dbg_kmer, 3, 40, backend="device", device="cpu")
+    else:
+        assert tengine.assemble_solutions(contigs, dbg_kmer, 3, 40, backend="device",
+                                          device="cpu") == got

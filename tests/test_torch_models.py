@@ -134,7 +134,7 @@ def test_table_model_lookup(jtable, ttable):
 def test_forward_and_loss_vs_jax(jtable):
     p = jax_params()
     codes, target = batch(jtable)
-    model = tbm.params_from_numpy(p)
+    model = tbm.params_from_numpy(p, "cpu")
     assert_forward_close(model, p, codes)
     loss = float(tbm.loss_fn(model, torch.from_numpy(codes), torch.from_numpy(target)).detach())
     jloss = float(jbm.loss_fn(as_jax(p), jnp.asarray(codes), jnp.asarray(target)))
@@ -144,7 +144,7 @@ def test_forward_and_loss_vs_jax(jtable):
 def test_grads_vs_jax_within_one_bf16_ulp(jtable):
     p = jax_params()
     codes, target = batch(jtable)
-    model = tbm.params_from_numpy(p)
+    model = tbm.params_from_numpy(p, "cpu")
     tbm.loss_fn(model, torch.from_numpy(codes), torch.from_numpy(target)).backward()
     jg = jax.grad(jbm.loss_fn)(as_jax(p), jnp.asarray(codes), jnp.asarray(target))
     got = {n: getattr(model, n).grad.numpy() for n in tbm.PARAM_NAMES}
@@ -177,7 +177,7 @@ def test_one_adam_step_vs_optax(jtable):
     opt = optax.adam(1e-3)
     jp, _, jloss = jbm.make_train_step(opt)(as_jax(p), opt.init(as_jax(p)),
                                             jnp.asarray(codes), jnp.asarray(target))
-    model = tbm.params_from_numpy(p)
+    model = tbm.params_from_numpy(p, "cpu")
     loss = tbm.make_train_step(tbm.adam(model, 1e-3))(model, torch.from_numpy(codes),
                                                       torch.from_numpy(target))
     np.testing.assert_allclose(float(loss), float(jloss), atol=ATOL, rtol=RTOL)
@@ -189,7 +189,7 @@ def test_one_adam_step_vs_optax(jtable):
 def test_init_params_scales():
     gen = torch.Generator()
     gen.manual_seed(0)
-    model = tbm.init_params(gen, k=8, hidden=256)
+    model = tbm.init_params(gen, k=8, hidden=256, device="cpu")
     assert tuple(model.w1.shape) == (32, 256) and tuple(model.w3.shape) == (256, 1)
     assert all(float(getattr(model, b).detach().abs().max()) == 0 for b in ("b1", "b2", "b3"))
     np.testing.assert_allclose(float(model.w1.detach().std()), (2 / 32) ** 0.5, rtol=0.05)
@@ -212,7 +212,7 @@ def test_jax_checkpoint_loads_into_the_port_and_back(tmp_path):
     p = {k: jnp.asarray(v) for k, v in jax_params(seed=3, hidden=32).items()}
     codes = np.random.default_rng(4).integers(0, 65536, 256).astype(np.int32)
     jbm.save_params(str(tmp_path / "jax.npz"), p)
-    model = tbm.load_params(str(tmp_path / "jax.npz"))
+    model = tbm.load_params(str(tmp_path / "jax.npz"), "cpu")
     for name in tbm.PARAM_NAMES:
         np.testing.assert_array_equal(getattr(model, name).detach().numpy(), np.asarray(p[name]))
     tbm.save_params(str(tmp_path / "port" / "model.npz"), model)
@@ -223,7 +223,7 @@ def test_jax_checkpoint_loads_into_the_port_and_back(tmp_path):
                                   np.asarray(jbm.forward(p, feats)))
     got = assert_forward_close(model, {k: np.asarray(v) for k, v in p.items()}, codes)
     with torch.no_grad():
-        again = tbm.forward(tbm.load_params(str(tmp_path / "port" / "model.npz")),
+        again = tbm.forward(tbm.load_params(str(tmp_path / "port" / "model.npz"), "cpu"),
                             tbm.one_hot_octamer(torch.from_numpy(codes))).numpy()
     np.testing.assert_array_equal(again, got)
 
@@ -249,7 +249,7 @@ def _train_case(rank, p, batches):
     out = {}
     for name, shape in MESHES.items():
         mesh = make_mesh(*shape, device_type="cpu")
-        local = sharding.shard_params(mesh, tbm.params_from_numpy(p))
+        local = sharding.shard_params(mesh, tbm.params_from_numpy(p, "cpu"))
         step = sharding.make_sharded_train_step(mesh, tbm.adam(local, 1e-3))
         losses, grads = [], None
         for codes, target in batches:

@@ -390,6 +390,41 @@ def edge_case():
     return queries, target
 
 
+def with_ns(rng, s, rate=0.05):
+    """s with each base replaced by N at `rate`."""
+    return "".join("N" if rng.random() < rate else ch for ch in s)
+
+
+# A target and queries whose N (code 255) must match an N, as in the spec
+N_TARGET = "ACGTNNACGTTACNA"
+N_QUERIES = ["ACGTNNACG", "AAAAAA", "NNNN", "ACGTAAACGTTACAA"]
+# JAX's Pallas Myers kernel reads a target code above 3 as A
+# (genomeassembler_dev_tpu/ops/pallas/myers_kernel.py:80-82) and lets a
+# query's 255 match nothing, so on these strings it differs from the spec
+JAX_MYERS_ON_N = {"NW": [8, 9, 15, 0], "HW": [2, 3, 4, 0]}
+
+
+@functools.lru_cache(maxsize=None)
+def non_acgt_cases():
+    """{name: (queries, target)} with ~5% N in queries and target: the
+    strings above; seeded random queries (copies of target stretches and
+    unrelated ones, some empty) against a 200-base target; queries to 3,000
+    columns, wider than one band of the numpy model's small plans."""
+    rng = np.random.default_rng(10)
+    target = with_ns(rng, rand_dna(rng, 200))
+    queries = [""]
+    for _ in range(8):
+        a = int(rng.integers(0, 150))
+        queries.append(with_ns(rng, target[a : a + int(rng.integers(1, 120))].replace("N", "A")))
+    queries += [with_ns(rng, rand_dna(rng, int(n))) for n in rng.integers(1, 260, 5)]
+    queries.append(target)
+    rng = np.random.default_rng(11)
+    wide_target = with_ns(rng, rand_dna(rng, 150))
+    wide = [with_ns(rng, (wide_target * 21)[:n]) for n in (1025, 2100, 3000)]
+    return {"N strings": (N_QUERIES, N_TARGET), "N random": (queries, target),
+            "N bands": (wide + [wide_target, ""], wide_target)}
+
+
 def wavefront_myers(qmat, qlens, target, mode, S, lanes):
     """numpy model of csrc/myers.cu's schedule, one query at a time: a query's
     words cut into strips of S per lane; at step s word o (lane o // S, slot
@@ -402,7 +437,9 @@ def wavefront_myers(qmat, qlens, target, mode, S, lanes):
     hin0 = 0 if mode == "HW" else 1
     band_words = lanes * S
     bits = np.uint32(1) << np.arange(32, dtype=np.uint32)
-    tcodes = np.minimum(np.asarray(target, np.int64), 4)  # codes >= 4 match nothing
+    # the Peq row of each target code: 0-3, 255 (N) row 4 (the wrapper
+    # refuses 4-254); row 5, no match, outside the target
+    tcodes = np.minimum(np.asarray(target, np.int64), 4)
     out = []
     for row, qlen in zip(qmat, qlens):
         qlen = min(max(int(qlen), 0), M)
@@ -411,7 +448,7 @@ def wavefront_myers(qmat, qlens, target, mode, S, lanes):
             continue
         nw = (qlen - 1) // 32 + 1
         nbands = -(-nw // band_words)
-        codes = np.full(nbands * band_words * 32, 4, np.int64)
+        codes = np.full(nbands * band_words * 32, 5, np.int64)  # past qlen: no row
         codes[:qlen] = row[:qlen]
         bstar = (qlen - 1) & 31
         hbuf = np.zeros(N, np.int64)
@@ -423,8 +460,9 @@ def wavefront_myers(qmat, qlens, target, mode, S, lanes):
             lane = np.arange(used)
             offset = lane[:, None] * S + np.arange(S)  # [used, S]: word within the band
             cw = codes[(w0 + offset)[..., None] * 32 + np.arange(32)]
-            peq = np.stack([((cw == c) * bits).sum(-1, dtype=np.uint32) for c in range(4)]
-                           + [np.zeros((used, S), np.uint32)])  # code 4: no match
+            peq = np.stack([((cw == c) * bits).sum(-1, dtype=np.uint32)
+                            for c in (0, 1, 2, 3, 255)]
+                           + [np.zeros((used, S), np.uint32)])  # row 5: no match
             vp = np.full((used, S), 0xFFFFFFFF, np.uint32)
             vn = np.zeros((used, S), np.uint32)
             hout = np.zeros((used, S), np.int64)  # +1, 0 or -1
@@ -435,7 +473,7 @@ def wavefront_myers(qmat, qlens, target, mode, S, lanes):
             for s in range(N + used * S - 1):
                 i = s - offset
                 ok = (i >= 0) & (i < N)
-                tc = np.where(ok, tcodes[np.clip(i, 0, max(N - 1, 0))], 4)
+                tc = np.where(ok, tcodes[np.clip(i, 0, max(N - 1, 0))], 5)
                 up = np.concatenate([[0], hout[:-1, S - 1]])
                 up = np.where(wl == 0, mailbox[(s + 1) & 1][np.maximum(warp - 1, 0)], up)
                 up[0] = hin0 if band == 0 else hbuf[min(s, N - 1)]
@@ -477,6 +515,67 @@ def _levenshtein_references(case, mode):
                   mode=mode).numpy()
     want = np.array([spec.levenshtein(q, target, mode=mode) for q in queries], np.int32)
     return qmat, qlen, tgt, jax_k, plain, want
+
+
+def _non_acgt_references(case, mode):
+    """(qmat, qlen, target codes, spec) for a non_acgt_cases() case."""
+    queries, target = non_acgt_cases()[case]
+    qmat, qlen = pack(queries, pad=0)
+    want = np.array([spec.levenshtein(q, target, mode=mode) for q in queries], np.int32)
+    return qmat, qlen, encode_dna(target), want
+
+
+class TestNonACGT:
+    """255 (N) against 255 is a match for the spec, the plain DP, the
+    prefix-min kernel's and the Myers kernel's CPU routes, and JAX's plain
+    DP. JAX's Pallas Myers kernel differs: its values are asserted, so a
+    change on either side shows."""
+
+    @pytest.mark.parametrize("mode", ["NW", "HW"])
+    @pytest.mark.parametrize("case", ["N strings", "N random", "N bands"])
+    def test_plain_routes_and_jax_plain_vs_spec(self, case, mode):
+        qmat, qlen, tgt, want = _non_acgt_references(case, mode)
+        assert (tgt == 255).any() and (qmat == 255).any()
+        args = (torch.from_numpy(qmat), torch.from_numpy(qlen), torch.from_numpy(tgt))
+        batched_levenshtein_myers.launches = batched_levenshtein_prefix_min.launches = 0
+        np.testing.assert_array_equal(t_lev(*args, mode=mode).numpy(), want)
+        np.testing.assert_array_equal(batched_levenshtein_myers(*args, mode=mode).numpy(), want)
+        np.testing.assert_array_equal(
+            batched_levenshtein_prefix_min(*args, mode=mode).numpy(), want)
+        assert batched_levenshtein_myers.launches == batched_levenshtein_prefix_min.launches == 0
+        jargs = (jnp.asarray(qmat), jnp.asarray(qlen), jnp.asarray(tgt))
+        np.testing.assert_array_equal(np.asarray(j_lev(*jargs, mode=mode)), want)
+
+    @pytest.mark.parametrize("mode", ["NW", "HW"])
+    def test_jax_myers_kernel_reads_n_as_a(self, mode):
+        qmat, qlen, tgt, want = _non_acgt_references("N strings", mode)
+        got = np.asarray(j_myers(jnp.asarray(qmat), jnp.asarray(qlen), jnp.asarray(tgt),
+                                 mode=mode, block_b=128, interpret=True))
+        assert want.tolist() == {"NW": [6, 11, 12, 3], "HW": [0, 4, 2, 3]}[mode]
+        assert got.tolist() == JAX_MYERS_ON_N[mode] != want.tolist()
+
+    @pytest.mark.parametrize("where", ["query", "target"])
+    def test_myers_wrapper_codes_4_to_254(self, where):
+        """A target code in 4-254 is refused; a query code there matches
+        nothing, in the plain DP and in the kernel's numpy model alike."""
+        qmat, qlen, tgt, want = _non_acgt_references("N strings", "NW")
+        qmat, tgt = qmat.copy(), tgt.copy()
+        if where == "target":
+            tgt[3] = 254
+            with pytest.raises(ValueError, match="4-254"):
+                batched_levenshtein_myers(torch.from_numpy(qmat), torch.from_numpy(qlen),
+                                          torch.from_numpy(tgt))
+            return
+        qmat[2, 1] = 4
+        qmat[0, qlen[0]:] = 7  # and the padding beyond a query's length is free
+        args = (torch.from_numpy(qmat), torch.from_numpy(qlen), torch.from_numpy(tgt))
+        for mode in ("NW", "HW"):
+            plain = t_lev(*args, mode=mode).numpy()
+            np.testing.assert_array_equal(batched_levenshtein_myers(*args, mode=mode).numpy(),
+                                          plain)
+            np.testing.assert_array_equal(wavefront_myers(qmat, qlen, tgt, mode, 1, 32), plain)
+            # as a character that the target does not hold
+            assert plain[2] == spec.levenshtein("NXNN", N_TARGET, mode=mode)
 
 
 class TestMyersWavefront:
@@ -523,6 +622,20 @@ class TestMyersWavefront:
         np.testing.assert_array_equal(got, want)
         np.testing.assert_array_equal(jax_k, want)
         np.testing.assert_array_equal(plain, want)
+
+    @pytest.mark.parametrize("mode", ["NW", "HW"])
+    @pytest.mark.parametrize("case", ["N strings", "N random", "N bands"])
+    @pytest.mark.parametrize("S,lanes", [(1, 32), (2, 32), (1, 64), ("plan", None)])
+    def test_schedule_on_non_acgt_vs_spec(self, S, lanes, case, mode):
+        """N matches N in the kernel's schedule too: a Peq row for 255, and
+        one that matches nothing for characters outside the target."""
+        qmat, qlen, tgt, want = _non_acgt_references(case, mode)
+        if S == "plan":
+            plan = launch_plan(max(1, -(-qmat.shape[1] // 32)))
+            S, lanes = plan.words_per_lane, plan.lanes
+        elif case == "N bands":
+            assert -(-qmat.shape[1] // 32) > S * lanes  # several bands
+        np.testing.assert_array_equal(wavefront_myers(qmat, qlen, tgt, mode, S, lanes), want)
 
 
 def wavefront_prefix_min(qmat, qlens, target, mode, C, R, lanes):
@@ -656,6 +769,17 @@ class TestPrefixMinWavefront:
         np.testing.assert_array_equal(got, want)
         np.testing.assert_array_equal(jax_k, want)
         np.testing.assert_array_equal(plain, want)
+
+    @pytest.mark.parametrize("mode", ["NW", "HW"])
+    @pytest.mark.parametrize("case", ["N strings", "N bands"])
+    @pytest.mark.parametrize("C,R,lanes", [(16, 4, 32), ("plan", None, None)])
+    def test_schedule_on_non_acgt_vs_spec(self, C, R, lanes, case, mode):
+        qmat, qlen, tgt, want = _non_acgt_references(case, mode)
+        if C == "plan":
+            plan = tpm.launch_plan(qmat.shape[1])
+            C, R, lanes = plan.cols_per_lane, plan.rows_per_step, plan.lanes
+        np.testing.assert_array_equal(wavefront_prefix_min(qmat, qlen, tgt, mode, C, R, lanes),
+                                      want)
 
     @pytest.mark.parametrize("mode", ["NW", "HW"])
     def test_wrapper_takes_wide_queries(self, mode):

@@ -122,7 +122,7 @@ def _cases(rank, inp):
     out["lev"] = gather(sharding.make_lev_step(m4)(t["pm"], t["pl"], t["gm"]), m4).numpy()
 
     mt = make_mesh(seg=2, read=1, tp=2, device_type="cpu")
-    local = sharding.shard_params(mt, tbm.params_from_numpy(inp["params"]))
+    local = sharding.shard_params(mt, tbm.params_from_numpy(inp["params"], "cpu"))
     train = sharding.make_sharded_train_step(mt, tbm.adam(local, 1e-3))
     losses, grads = [], None
     for codes, target in inp["train"]:
@@ -273,7 +273,7 @@ def test_dp_tp_train_step_vs_unsharded_jax(ranks, inputs):
         # on the trained parameters, up to rounding: it sums the tp ranks'
         # bf16-rounded partial gradients, each within 2^-9 of its value
         feats = tbm.one_hot_octamer(torch.from_numpy(inputs["train"][0][0])).requires_grad_()
-        tbm.forward(tbm.params_from_numpy(got["params"]), feats).sum().backward()
+        tbm.forward(tbm.params_from_numpy(got["params"], "cpu"), feats).sum().backward()
         want = feats.grad.numpy()
         np.testing.assert_allclose(got["feats_grad"], want, rtol=0,
                                    atol=2.0**-8 * np.abs(want).max())

@@ -4,6 +4,7 @@ path, the own-dBG golden fixtures, and the port's independence from jax."""
 
 import csv
 import dataclasses
+import glob
 import json
 import os
 import subprocess
@@ -192,21 +193,28 @@ def assert_same_artifacts(dir_a, dir_b):
 
 
 def test_unported_paths_raise(tmp_path):
-    """Only the plots stay unported; batched=True writes the serial run's
+    """Nothing is left unported: plots=True draws each experiment's three
+    figures, serial and batched, and batched=True writes the serial run's
     artifact values."""
     from genomeassembler_dev_tpu_torch.pipeline.experiments import run_own_study
     from genomeassembler_dev_tpu_torch.sim.segments import synthetic_segment_store
 
     segs = synthetic_segment_store(3, 250, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_own_study(str(tmp_path / "plots"), segs, "cpu", plots=True)
     base = ExperimentConfig(seq_len=250, coverage_target=12.0, kmer=8, seed=1234,
                             n_orderings=50)
     reports = {name: run_own_study(str(tmp_path / name), segs, "cpu", base=base,
                                    grid=((12, 9), (16, 13)), total_iters=3,
-                                   batched=name == "batched", seg_batch=2)
+                                   batched=name == "batched", seg_batch=2, plots=True)
                for name in ("serial", "batched")}
     assert reports["batched"].n_experiments == reports["serial"].n_experiments == 6
+    figures = {name: sorted(os.path.relpath(p, tmp_path / name) for p in glob.glob(
+        str(tmp_path / name / "results" / "exp_*" / "*.png"))) for name in reports}
+    assert figures["serial"] == figures["batched"] and len(figures["serial"]) == 6 * 3
+    for fig in ("ProbabilityTrack", "BreakpointHistogram", "ScoresVsLevDist"):
+        assert sum(os.path.basename(f).startswith(fig + "_") for f in figures["serial"]) == 6
+    for name in reports:  # the figures are not artifacts of the serial run
+        for f in figures[name]:
+            os.remove(tmp_path / name / f)
     assert_same_artifacts(str(tmp_path / "serial"), str(tmp_path / "batched"))
 
 
@@ -241,6 +249,8 @@ def test_port_imports_no_jax():
         "genomeassembler_dev_tpu_torch.pipeline.batch_runner",
         "genomeassembler_dev_tpu_torch.sim.reads_io",
         "genomeassembler_dev_tpu_torch.sim.segments",
+        "genomeassembler_dev_tpu_torch.utils.plots",
+        "genomeassembler_dev_tpu_torch.utils.profiling",
     ]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in modules)
             + "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

@@ -279,8 +279,15 @@ def test_cli_run_and_refusals(tmp_path, capsys):
     out = json.loads(capsys.readouterr().out)
     assert out["solutions"] > 0 and os.path.exists(out["csv"])
     assert set(out["stats"]) == {"base_composition", "coverage", "nr_of_reads"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(["study-own", "--device", "cpu", "--plots"] + args)
+    # --plots draws three figures an experiment beside its artifacts
+    tcli.main(["study-own", "--device", "cpu", "--plots", "--grid", "12:9,16:13"] + args
+              + ["--workdir", str(tmp_path / "plots")])
+    assert json.loads(capsys.readouterr().out)["ran"] == 4
+    for ind in (1, 2):
+        figures = sorted(os.path.basename(p).split("_SeqLen")[0] for p in glob.glob(
+            str(tmp_path / "plots" / "results" / f"exp_{ind}" / "*.png")))
+        assert figures == sorted(["BreakpointHistogram", "ProbabilityTrack",
+                                  "ScoresVsLevDist"] * 2)
     # --batched --seg-batch reach the batched runner and write the serial
     # run's values (the last batch of two filled up with its first segment)
     for name, extra in (("serial", []), ("batched", ["--batched", "--seg-batch", "2"])):
