@@ -67,7 +67,17 @@ NVIDIA GPU.
       its stages annotated, then one K2 and one K3 call: every K1, K2 and K3
       launch must be a kernel event of its name launched inside its span;
       prints the device busy share of the experiment's window, its top five
-      device operations and the trace file.
+      device operations and the trace file;
+ [16] the port's headline bench (genomeassembler_dev_tpu_torch/bench.py) at
+      B 1024 x 1 kb with its fatal gates (the step against the native engine
+      on 8 segments), its JSON line printed, then K2 at the step's shape
+      [1024, 16,670] against its plain version, timed beside torch.bincount,
+      K1 on the bench's NW inputs (256 x 1024 x 1000) against the plain DP,
+      and a device trace of one step (busy share, top device operations).
+
+Every call of K1, K2 and K3 in [3], [3b], [3c] and [16] checks that the
+caller's current CUDA device is the same after it as before (on one card
+there is no other device to move to).
 
     python3 chip_smoke.py
 
@@ -77,8 +87,8 @@ check raises on a mismatch, so any failure exits non-zero. The last line is
 power limit, and the one before that the kernel record. Each kernel's
 bound_ms there is the least time the card could take for the work of the
 timed call: bytes over the memory rate for the histogram, operations over
-the card's issue rate for the Levenshtein kernels (HBM_BYTES_PER_MS,
-OPS_PER_MS, CELL_OPS, WORD_STEP_OPS).
+the card's issue rate for the Levenshtein kernels
+(genomeassembler_dev_tpu_torch/utils/roofline.py).
 """
 
 from __future__ import annotations
@@ -96,6 +106,9 @@ import time
 
 import numpy as np
 import torch
+
+from genomeassembler_dev_tpu_torch.utils.roofline import (
+    HBM_BYTES_PER_MS, bytes_bound_ms, lev_bound_ms)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = [os.path.join(HERE, "tests", "golden", "fixtures", f"{n}.json")
@@ -119,6 +132,7 @@ REPEAT_ORDERINGS = 20000  # the velvet path's own (pipeline/velvet.py)
 UNITIG_READ = 60  # error-free reads that make the repeat segment's velvet contigs
 PLOTS_DIR = os.path.join(HERE, "build", "smoke_plots")
 TRACE_DIR = os.path.join(HERE, "build", "smoke_trace")
+BENCH_TRACE_DIR = os.path.join(HERE, "build", "bench_trace")
 KERNEL_NAMES = {"myers_levenshtein": "myers_kernel", "kmer_histogram": "histogram_kernel",
                 "prefix_min_levenshtein": "prefix_min_kernel"}  # in the kernels' symbols
 KERNELS = {  # name in the record: (csrc name, TPU kernel it replaces)
@@ -129,15 +143,6 @@ KERNELS = {  # name in the record: (csrc name, TPU kernel it replaces)
                                "genomeassembler_dev_tpu/ops/pallas/edit_distance_kernel.py:32"),
 }
 RTOL = 2e-5  # float32 scores: the JAX package's float32 tolerance
-# the least time the card could take (NVIDIA H100 SXM data sheet; 700 W):
-HBM_BYTES_PER_MS = 3.35e9  # 3.35 TB/s of device memory
-# 132 SMs x 4 warp instructions of 32 lanes a cycle x 1.98 GHz: the most
-# scalar operations of any type the card issues, its 67 TFLOP/s of float32
-# with an FMA counted once. (64 integer lanes an SM, 16.7 T/s, is no bound:
-# the prefix-min kernel beat it at the repeat-heavy shape on an H100.)
-OPS_PER_MS = 132 * 128 * 1.98e6
-CELL_OPS = 5  # prefix-min: the compare, the substitution add, a three-way min (two DPX ops)
-WORD_STEP_OPS = 20  # Myers: Hyyro's step on one 32-bit word, as written in csrc/myers.cu
 # query lengths at the Myers kernel's strip, warp and band edges
 EDGE_LENGTHS = (1, 31, 32, 33, 63, 64, 65, 1024, 1025, 8192, 8193, 16385, 50048)
 
@@ -292,14 +297,16 @@ def graph_nodes(fn) -> list[int]:
     return types
 
 
-def lev_bound_ms(lens: torch.Tensor, n: int, kind: str) -> float:
-    """Integer-operation bound of a Levenshtein call against an n-base
-    target: the cells (prefix-min) or 32-bit word steps (Myers) that the
-    queries' real lengths need, at OPS_PER_MS."""
-    lens = lens.long().clamp(min=0)
-    if kind == "cells":
-        return n * int(lens.sum()) * CELL_OPS / OPS_PER_MS
-    return n * int(((lens + 31) // 32).sum()) * WORD_STEP_OPS / OPS_PER_MS
+def keeps_device(kernel: str, call):
+    """call() (one kernel's wrapper), checking that the caller's current CUDA
+    device is the same after the call as before it. With one card there is
+    no other device to move to, so the check cannot fail there."""
+    before = torch.cuda.current_device()
+    out = call()
+    torch.cuda.synchronize()
+    after = torch.cuda.current_device()
+    check(after == before, f"{kernel} moved the current device from {before} to {after}")
+    return out
 
 
 def max_err(got: torch.Tensor, want: torch.Tensor) -> int:
@@ -925,9 +932,7 @@ def phase_trace(dev, record: dict, k2_args, k3_args) -> None:
     launches = {name: fn.launches for name, fn in counters.items()}
     check(cols["sequence"] == want["sequence"] and np.array_equal(
         cols["lev_dist_vs_true"], want["lev_dist_vs_true"]), "trace: traced experiment != untraced")
-    (path,) = glob.glob(os.path.join(TRACE_DIR, "*.pt.trace.json"))
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
+    path, events = trace_events(TRACE_DIR)
     spans = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
              if e.get("cat") == "user_annotation"}
     check(set(stages) | {"experiment", "K2", "K3"} <= spans.keys(), f"trace: spans {list(spans)}")
@@ -948,18 +953,7 @@ def phase_trace(dev, record: dict, k2_args, k3_args) -> None:
               f"{symbol}, {len(inside)} launched inside their span")
         record[name]["traced_launches"] = launches[name]
     lo, hi = spans["experiment"]
-    cuts = sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi)) for e in device
-                  if e["ts"] < hi and e["ts"] + e["dur"] > lo)
-    busy, end = 0.0, lo
-    for a, b in cuts:  # the union of the device's intervals
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    by_op: dict[str, float] = {}
-    for a, b, e in ((max(e["ts"], lo), min(e["ts"] + e["dur"], hi), e) for e in device):
-        if b > a:
-            by_op[e["name"]] = by_op.get(e["name"], 0.0) + b - a
-    top = sorted(by_op.items(), key=lambda kv: -kv[1])[:5]
+    busy, top, _ = device_busy(device, lo, hi)
     print(f"[15] traced experiment (row 12:9, {len(sols)} solutions) equals its untraced run; "
           f"kernel events inside their spans: " + ", ".join(
               f"{KERNEL_NAMES[n]} {found[n]} of {launches[n]} launches" for n in found))
@@ -972,6 +966,122 @@ def phase_trace(dev, record: dict, k2_args, k3_args) -> None:
     record["myers_levenshtein"]["trace"] = {
         "busy_share": busy / (hi - lo), "window_ms": (hi - lo) / 1e3,
         "top_ops_ms": [[name[:80], us / 1e3] for name, us in top], "file": path}
+
+
+def trace_events(logdir: str) -> tuple[str, list[dict]]:
+    """The one trace file under logdir and its events."""
+    (path,) = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    with open(path) as f:
+        return path, json.load(f)["traceEvents"]
+
+
+def device_busy(device: list[dict], lo: float, hi: float):
+    """Of the device events (kernels, copies, sets) within [lo, hi] us: the
+    us the card was busy (the union of their intervals), the five device
+    operations that took most of it by name, and how many events fell in."""
+    cuts = sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi)) for e in device
+                  if e["ts"] < hi and e["ts"] + e["dur"] > lo)
+    busy, end = 0.0, lo
+    for a, b in cuts:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_op: dict[str, float] = {}
+    for a, b, e in ((max(e["ts"], lo), min(e["ts"] + e["dur"], hi), e) for e in device):
+        if b > a:
+            by_op[e["name"]] = by_op.get(e["name"], 0.0) + b - a
+    return busy, sorted(by_op.items(), key=lambda kv: -kv[1])[:5], len(cuts)
+
+
+def phase_bench(dev, record: dict) -> None:
+    """[16] the port's headline bench (genomeassembler_dev_tpu_torch/bench.py)
+    at full size, B 1024 x 1 kb with 256 queries at HW: its fatal gates hold
+    the step against the native engine (octamer totals of every segment, the
+    contig sets and octamer counts of 8), and its JSON line is printed. Then
+    K2 at the step's shape, [1024, 16,670], against its plain version,
+    timed beside torch.bincount; K1 on the bench's NW inputs (256 x 1024 x
+    1000) against the plain DP; and a device trace of one step: the card's
+    busy share of it and its top device operations."""
+    from genomeassembler_dev_tpu_torch import bench
+    from genomeassembler_dev_tpu_torch.ops import myers
+    from genomeassembler_dev_tpu_torch.ops.edit_distance import (
+        batched_levenshtein, batched_levenshtein_auto)
+    from genomeassembler_dev_tpu_torch.ops.histogram import (
+        count_kmers_batched, count_kmers_batched_plain)
+    from genomeassembler_dev_tpu_torch.utils.profiling import annotate, trace
+
+    B, L = 1024, 1000
+    torch.cuda.synchronize()
+    count_kmers_batched.launches = 0
+    myers.batched_levenshtein_myers.launches = 0
+    t0 = time.perf_counter()
+    payload = bench.run(dev, B, L)
+    wall = time.perf_counter() - t0
+    k2, k1 = count_kmers_batched.launches, myers.batched_levenshtein_myers.launches
+    check(k2 > 0 and k1 > 0, f"the bench launched K2 {k2} and K1 {k1} times")
+    record["kmer_histogram"]["launches"] += k2
+    record["myers_levenshtein"]["launches"] += k1
+    check(payload["metric"] == bench.METRIC and payload["value"] > 0
+          and np.isfinite(payload["vs_baseline"]), f"bench payload {payload}")
+    print(json.dumps(payload))
+    print(f"[16] bench B {B} x {L}: {payload['value']:.1f} reads/s, vs_baseline "
+          f"{payload['vs_baseline']:.3f} (median of "
+          f"{', '.join(f'{r:.2f}' for r in payload['extras']['ratio_pairs'])}); gates "
+          f"passed; K2 launches {k2}, K1 launches {k1}; {wall:.1f} s")
+
+    rec = record["kmer_histogram"]
+    codes, valid = bench.simulate_inputs(B, L, dev)
+    oc, ov = bench.octamer_windows(codes, valid)
+    got = keeps_device("K2", lambda: count_kmers_batched(oc, ov, 4**8))
+    want = count_kmers_batched_plain(oc, ov, 4**8)
+    rec["max_abs_err"] = max(rec["max_abs_err"], max_err(got, want))
+    check(torch.equal(got, want), f"bench shape {tuple(oc.shape)}: histogram kernel != plain")
+    flat = (torch.arange(B, device=dev)[:, None] * 4**8 + oc.long())[ov]
+    shape = {"B": B, "N": oc.shape[1],
+             "ms": 1e-3 * graph_us(lambda: count_kmers_batched(oc, ov, 4**8), 20),
+             "host_loop_ms": cuda_ms(lambda: count_kmers_batched(oc, ov, 4**8), 20),
+             "plain_ms": cuda_ms(lambda: count_kmers_batched_plain(oc, ov, 4**8), 5),
+             "library_ms": cuda_ms(lambda: torch.bincount(flat, minlength=B * 4**8), 20),
+             "bound_ms": bytes_bound_ms(oc, ov, got), "bound_by": "bytes", "launches": k2}
+    rec["bench_shape"] = shape
+    print(f"[16] K2 at the step's shape {tuple(oc.shape)}, k 8: equal to the plain version; "
+          f"kernel {shape['ms']:.4f} ms as a CUDA graph ({shape['host_loop_ms']:.4f} ms by "
+          f"events over calls), torch.bincount {shape['library_ms']:.4f} ms, plain "
+          f"{shape['plain_ms']:.3f} ms; bound {shape['bound_ms']:.4f} ms (bytes), share "
+          f"{shape['bound_ms'] / shape['ms']:.3f}")
+
+    (mode, qs, qlen, tgt), _ = bench.lev_cases(B, L, dev)
+    got = keeps_device("K1", lambda: batched_levenshtein_auto(qs, qlen, tgt, mode=mode))
+    want = batched_levenshtein(qs, qlen, tgt, mode=mode)
+    record["myers_levenshtein"]["max_abs_err"] = max(
+        record["myers_levenshtein"]["max_abs_err"], max_err(got, want))
+    check(torch.equal(got, want), f"bench's {mode} {tuple(qs.shape)} x {tgt.shape[0]}: "
+          "Myers kernel != plain DP")
+    print(f"[16] K1 on the bench's {mode} inputs {tuple(qs.shape)} x {tgt.shape[0]}: equal "
+          "to the plain DP")
+
+    shutil.rmtree(BENCH_TRACE_DIR, ignore_errors=True)
+    bench.bench_step(codes, valid, L + bench.DBG_K)  # warm at this allocation
+    torch.cuda.synchronize()
+    with trace(BENCH_TRACE_DIR):
+        with annotate("bench_step"):
+            bench.bench_step(codes, valid, L + bench.DBG_K)
+            torch.cuda.synchronize()
+    path, events = trace_events(BENCH_TRACE_DIR)
+    (lo, hi), = [(e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("cat") == "user_annotation" and e["name"] == "bench_step"]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy, top, n_ops = device_busy(device, lo, hi)
+    syncs = sum(1 for e in events if e.get("cat") == "cuda_runtime" and lo <= e["ts"] <= hi
+                and ("Synchronize" in e["name"] or "MemcpyAsync" in e["name"]))
+    check(any(KERNEL_NAMES["kmer_histogram"] in e["name"] and lo <= e["ts"] <= hi
+              for e in device), "bench step trace: no histogram kernel in the step")
+    print(f"[16] traced step B {B}: device busy {busy / (hi - lo):.4f} of its "
+          f"{(hi - lo) / 1e3:.3f} ms window ({busy / 1e3:.3f} ms), {n_ops} device operations, "
+          f"{syncs} host waits or copies")
+    for name, us in top:
+        print(f"[16] top device op: {us / 1e3:.3f} ms  {name[:110]}")
+    print(f"[16] trace: {os.path.relpath(path, HERE)} ({os.path.getsize(path)} bytes)")
 
 
 def main() -> int:
@@ -1042,7 +1152,7 @@ def main() -> int:
     lev_cases = []  # (name, args, mode, plain result, Myers result)
 
     def compare(name, args, mode):
-        got = myers.batched_levenshtein_myers(*args, mode=mode)
+        got = keeps_device("K1", lambda: myers.batched_levenshtein_myers(*args, mode=mode))
         want = batched_levenshtein(*args, mode=mode)
         torch.cuda.synchronize()
         rec = record["myers_levenshtein"]
@@ -1097,8 +1207,7 @@ def main() -> int:
     # -- phase 3b: prefix-min kernel vs the same plain results and Myers ------
     rec = record["prefix_min_levenshtein"]
     for name, args, mode, want, k1 in lev_cases:
-        got = batched_levenshtein_prefix_min(*args, mode=mode)
-        torch.cuda.synchronize()
+        got = keeps_device("K3", lambda: batched_levenshtein_prefix_min(*args, mode=mode))
         rec["max_abs_err"] = max(rec["max_abs_err"], max_err(got, want))
         check(torch.equal(got, want), f"{name} {mode}: prefix-min kernel != plain DP")
         check(torch.equal(got, k1), f"{name} {mode}: prefix-min kernel != Myers kernel")
@@ -1119,7 +1228,7 @@ def main() -> int:
     rec = record["kmer_histogram"]
 
     def hist_case(name, codes, valid, bins, native_counts=None):
-        got = count_kmers_batched(codes, valid, bins)
+        got = keeps_device("K2", lambda: count_kmers_batched(codes, valid, bins))
         want = count_kmers_batched_plain(codes, valid, bins)
         torch.cuda.synchronize()
         rec["max_abs_err"] = max(rec["max_abs_err"], max_err(got, want))
@@ -1785,6 +1894,9 @@ def main() -> int:
 
     # -- phase 15: the device trace -------------------------------------------
     phase_trace(dev, record, k2_args, slice_args)
+
+    # -- phase 16: the headline bench -----------------------------------------
+    phase_bench(dev, record)
 
     print(f"[7] total {time.perf_counter() - t_start:.1f} s")
 

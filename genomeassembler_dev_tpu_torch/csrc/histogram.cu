@@ -32,6 +32,8 @@
 #include <type_traits>
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kMaxThreads = 1024;
@@ -180,7 +182,8 @@ int launch(const void* codes, const void* valid, void* out, int B, int N, int bi
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for a plan the kernel does not take. All pointers
-// are device pointers on `device`; the caller owns every buffer. The plan
+// are device pointers on `device`, which is current during the call only
+// (device_guard.cuh); the caller owns every buffer. The plan
 // (ops/histogram.py::launch_plan): bins in slices of slice_bins (all bins,
 // or a multiple of 4), each row in n_parts parts of chunk <= 65,535 entries (with
 // n_parts > 1 `out` must be zeroed), `copies` counter copies (1, or one a
@@ -191,8 +194,8 @@ extern "C" int gadev_histogram_launch(const void* codes, const void* valid, void
                                       int B, int N, int bins, int slice_bins, int n_parts,
                                       int chunk, int copies, int threads, int shared_bytes,
                                       int code_bytes, int vec, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceGuard guard(device);
+  if (guard.status() != cudaSuccess) return static_cast<int>(guard.status());
   if (B <= 0 || bins <= 0) return 0;
   const int copy_words = (((slice_bins + 1) / 2) + 3) & ~3;
   if (slice_bins <= 0 || (slice_bins < bins && slice_bins % 4 != 0) || n_parts <= 0 ||

@@ -59,6 +59,8 @@
 #include <type_traits>
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -268,7 +270,8 @@ extern "C" int gadev_myers_max_lanes(int S) {
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for a plan the kernel is not built for. All pointers
-// are device pointers on `device`; the caller owns every buffer. The plan
+// are device pointers on `device`, which is current during the call only
+// (device_guard.cuh); the caller owns every buffer. The plan
 // (ops/myers.py::launch_plan): S words a lane, `lanes` threads a query, one
 // block a query (a multiple of 32, at most gadev_myers_max_lanes(S)), dynamic
 // shared bytes: 4 x (2 x lanes / 32 + S x 6 x lanes) at least. `hbuf` is a
@@ -277,8 +280,8 @@ extern "C" int gadev_myers_launch(const void* queries, const void* qlens,
                                   const void* target, void* out, void* hbuf, int B,
                                   int M, int N, int S, int lanes, int shared_bytes,
                                   int hw, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceGuard guard(device);
+  if (guard.status() != cudaSuccess) return static_cast<int>(guard.status());
   if (B <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (S) {

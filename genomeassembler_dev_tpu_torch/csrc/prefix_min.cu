@@ -50,6 +50,8 @@
 #include <type_traits>
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -232,7 +234,8 @@ extern "C" int gadev_prefix_min_max_lanes() { return kMaxLanes; }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for a plan the kernel is not built for. All pointers
-// are device pointers on `device`; the caller owns every buffer. The plan
+// are device pointers on `device`, which is current during the call only
+// (device_guard.cuh); the caller owns every buffer. The plan
 // (ops/prefix_min.py::launch_plan): C columns a lane and R rows a step
 // (16 and 4, or 32 and 4), `lanes`
 // threads a query (a multiple of 32, at most gadev_prefix_min_max_lanes()),
@@ -243,8 +246,8 @@ extern "C" int gadev_prefix_min_launch(const void* queries, const void* qlens,
                                        int M, int N, int C, int R, int lanes, int hw,
                                        int device,
                                        void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceGuard guard(device);
+  if (guard.status() != cudaSuccess) return static_cast<int>(guard.status());
   if (B <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (C == 16 && R == 4)

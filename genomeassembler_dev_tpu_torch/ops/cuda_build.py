@@ -1,16 +1,19 @@
 """Build and load the port's CUDA kernels (csrc/<name>.cu).
 
 Each source is compiled by nvcc for sm_90a into a shared library with a
-plain C interface, build/torch_kernels/lib<name>_<hash of source and
-flags>.so, and loaded with ctypes. The compiler's register and shared
-memory report (-Xptxas -v) is kept beside it as <library>.log. Nothing is
-built when a module is imported: a wrapper loads its library at its first
-launch, and `build` compiles several sources at once.
+plain C interface, build/torch_kernels/lib<name>_<hash of source, shared
+headers and flags>.so, and loaded with ctypes. The compiler's register and
+shared memory report (-Xptxas -v) is kept beside it as <library>.log.
+Nothing is built when a module is imported: a wrapper loads its library at
+its first launch, and `build` compiles several sources at once. An entry
+point makes the tensors' device current for its call only
+(csrc/device_guard.cuh).
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -31,10 +34,14 @@ _libs: dict[str, ctypes.CDLL] = {}
 
 
 def library_path(name: str) -> str:
-    """Where csrc/<name>.cu builds to under the current source and flags."""
-    with open(os.path.join(_SRC_DIR, f"{name}.cu"), "rb") as f:
-        tag = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
+    """Where csrc/<name>.cu builds to under the current source, the shared
+    headers (csrc/*.cuh) and the flags."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(_SRC_DIR, f"{name}.cu"),
+                 *sorted(glob.glob(os.path.join(_SRC_DIR, "*.cuh")))]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:12]}.so")
 
 
 def build(*names: str) -> list[str]:

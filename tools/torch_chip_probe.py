@@ -51,6 +51,7 @@ def k1_vs_parent(parent_cu: str) -> None:
     other_so = os.path.join(cuda_build.BUILD_DIR, "libmyers_other.so")
     os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
     subprocess.run([shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc", *cuda_build.NVCC_FLAGS,
+                    "-I", os.path.join(REPO, "genomeassembler_dev_tpu_torch", "csrc"),
                     "-o", other_so, parent_cu], check=True, capture_output=True)
     libs = {"other": ctypes.CDLL(other_so), "current": cuda_build.load("myers", myers._declare)}
     myers._declare(libs["other"])
