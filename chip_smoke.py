@@ -73,9 +73,23 @@ NVIDIA GPU.
       on 8 segments), its JSON line printed, then K2 at the step's shape
       [1024, 16,670] against its plain version, timed beside torch.bincount,
       K1 on the bench's NW inputs (256 x 1024 x 1000) against the plain DP,
-      and a device trace of one step (busy share, top device operations).
+      and a device trace of one step (busy share, top device operations);
+ [17] BASELINE config 1: `cli run` on one 50 kb segment with 150-base reads
+      at dbg k 31 and 10,000 orderings; the re-simulated reads' contigs,
+      solutions, kmer_breaks and bp_score_true against the native engine,
+      their read FASTAs read back, and lev_dist_vs_true (K1 in NW mode at
+      the pipeline's [64, 50,048] x 50,000) against K3 and the plain DP on
+      the real rows; prints the stage times, the walk's W and buffer bytes,
+      the peak device memory and K1's time beside its bound;
+ [18] BASELINE config 3: `cli study-own --batched --seg-batch 64` over the
+      own grid at full scale (7 rows x 200 experiments, each row's last batch
+      filled up with its first segment): every artifact, one K1 launch a run
+      and none of K3, and on each row the experiments on both sides of every
+      batch boundary equal to Assembler.run_experiment on the card; prints
+      the study's and each row's experiments/s, the worker's merge seconds
+      beside the overlapped stage and the peak device memory.
 
-Every call of K1, K2 and K3 in [3], [3b], [3c] and [16] checks that the
+Every call of K1, K2 and K3 in [3], [3b], [3c], [16] and [17] checks that the
 caller's current CUDA device is the same after it as before (on one card
 there is no other device to move to).
 
@@ -133,6 +147,13 @@ UNITIG_READ = 60  # error-free reads that make the repeat segment's velvet conti
 PLOTS_DIR = os.path.join(HERE, "build", "smoke_plots")
 TRACE_DIR = os.path.join(HERE, "build", "smoke_trace")
 BENCH_TRACE_DIR = os.path.join(HERE, "build", "bench_trace")
+CONFIG1_DIR = os.path.join(HERE, "build", "smoke_config1")
+# BASELINE config 1 (studies/STUDY_config1_r2.md): one 50 kb segment, 150-base reads
+CONFIG1 = {"seq_len": 50000, "read_len": 150, "dbg_kmer": 31, "coverage": 40,
+           "n_orderings": 10000}
+OWN_FULL_DIR = os.path.join(HERE, "build", "smoke_own_full")
+OWN_FULL_ITERS = 200  # BASELINE config 3 (studies/STUDY_own_full_r2.md): 200 a row
+OWN_FULL_BATCH = 64
 KERNEL_NAMES = {"myers_levenshtein": "myers_kernel", "kmer_histogram": "histogram_kernel",
                 "prefix_min_levenshtein": "prefix_min_kernel"}  # in the kernels' symbols
 KERNELS = {  # name in the record: (csrc name, TPU kernel it replaces)
@@ -311,6 +332,31 @@ def keeps_device(kernel: str, call):
 
 def max_err(got: torch.Tensor, want: torch.Tensor) -> int:
     return int((got.long() - want.long()).abs().max()) if got.numel() else 0
+
+
+def reads_of(rs) -> list[str]:
+    """The valid reads of a ReadSet as strings."""
+    valid = rs.valid.cpu().numpy()
+    return ["".join("ACGT"[b] for b in r) for r in rs.codes.cpu().numpy()[valid]]
+
+
+def check_same_columns(what: str, got: dict, want: dict) -> None:
+    """Two SolutionsTables of one experiment agree: the solutions in the same
+    order, integers exact, KS within atol 1e-6 (NaN where NaN), the other
+    floats within RTOL."""
+    from genomeassembler_dev_tpu_torch.pipeline.assembler import RESULT_COLUMNS
+
+    check(list(got) == RESULT_COLUMNS, f"{what}: columns")
+    check(list(got["sequence"]) == list(want["sequence"]), f"{what}: solutions differ")
+    for col in RESULT_COLUMNS[1:]:
+        a, b = np.asarray(got[col]), np.asarray(want[col])
+        if col in ("sequence_len", "kmer_breaks", "lev_dist_vs_true"):
+            check(np.array_equal(a, b), f"{what}: {col} differs")
+        elif col.startswith("stat_test_KS"):
+            check(np.array_equal(np.isnan(a), np.isnan(b)) and np.allclose(
+                a[~np.isnan(b)], b[~np.isnan(b)], rtol=0, atol=1e-6), f"{what}: {col} differs")
+        else:
+            check(np.allclose(a, b, rtol=RTOL, atol=0, equal_nan=True), f"{what}: {col} differs")
 
 
 def octamer_code(s: str) -> int:
@@ -1084,6 +1130,246 @@ def phase_bench(dev, record: dict) -> None:
     print(f"[16] trace: {os.path.relpath(path, HERE)} ({os.path.getsize(path)} bytes)")
 
 
+def phase_config1(dev, record: dict) -> None:
+    """[17] BASELINE config 1: `cli run` on one 50 kb segment with 150-base
+    reads at dbg k 31 and 10,000 orderings (studies/STUDY_config1_r2.md's
+    command), in process on the card. The reads are re-simulated from the
+    seed: the contigs must equal the native engine's, the solutions its
+    merge, kmer_breaks and bp_score_true its breakage scorer;
+    lev_dist_vs_true (K1 in NW mode on the pipeline's [64, L] pack against
+    the segment) must equal K3 on the same input and the plain DP on the
+    real rows. Prints the stage times, the walk's W and buffer, the peak
+    device memory and K1's time at this shape beside its bound."""
+    from genomeassembler_dev_tpu_torch import cli
+    from genomeassembler_dev_tpu_torch.core.encoding import encode_dna
+    from genomeassembler_dev_tpu_torch.dbg.graph import contigs_sparse
+    from genomeassembler_dev_tpu_torch.merge import native
+    from genomeassembler_dev_tpu_torch.ops import myers
+    from genomeassembler_dev_tpu_torch.ops.edit_distance import batched_levenshtein
+    from genomeassembler_dev_tpu_torch.ops.prefix_min import batched_levenshtein_prefix_min
+    from genomeassembler_dev_tpu_torch.ops.windows import kmer_window_codes
+    from genomeassembler_dev_tpu_torch.pipeline import results as res_io
+    from genomeassembler_dev_tpu_torch.pipeline.assembler import (
+        RESULT_COLUMNS, Assembler, pack_strings)
+    from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
+    from genomeassembler_dev_tpu_torch.sim.reads_io import read_param_string, save_read_fastas
+    from genomeassembler_dev_tpu_torch.sim.segments import read_fasta, synthetic_segment_store
+    from genomeassembler_dev_tpu_torch.utils.timers import StageTimer
+
+    c = CONFIG1
+    shutil.rmtree(CONFIG1_DIR, ignore_errors=True)
+    argv = ["run", "--synthetic", "--seq-len", str(c["seq_len"]), "--read-len",
+            str(c["read_len"]), "--dbg-kmer", str(c["dbg_kmer"]), "--coverage",
+            str(c["coverage"]), "--n-orderings", str(c["n_orderings"]), "--ind", "1",
+            "--device", "cuda", "--workdir", CONFIG1_DIR]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    myers.batched_levenshtein_myers.launches = 0
+    batched_levenshtein_prefix_min.launches = 0
+    before = torch.cuda.current_device()
+    t0 = time.perf_counter()
+    cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    k1 = myers.batched_levenshtein_myers.launches
+    check(k1 >= 1, "config 1: the Myers kernel was not launched")
+    check(batched_levenshtein_prefix_min.launches == 0, "config 1: prefix-min launched")
+    check(torch.cuda.current_device() == before, "config 1 moved the current device")
+    record["myers_levenshtein"]["launches"] += k1
+
+    cfg = ExperimentConfig(seq_len=c["seq_len"], read_len=c["read_len"],
+                           dbg_kmer=c["dbg_kmer"], kmer=8, coverage_target=float(c["coverage"]),
+                           seed=1234, n_orderings=c["n_orderings"])
+    path, spath = res_io.solutions_path(CONFIG1_DIR, 1, cfg), res_io.stats_path(CONFIG1_DIR, 1, cfg)
+    check(sorted(os.listdir(res_io.exp_dir(CONFIG1_DIR, 1)))
+          == sorted(os.path.basename(p) for p in (path, spath)), "config 1: artifacts")
+    with open(path, newline="") as f:
+        check(next(csv.reader(f)) == RESULT_COLUMNS, "config 1: columns")
+    cols = res_io.load_result_columns(path)
+    with open(spath) as f:
+        stats = json.load(f)
+    segment = stats["stats"]["genome_seq"]
+    # cli run's segment: the first of the synthetic store at its --total-iters default
+    check(segment == synthetic_segment_store(cfg.seed, cfg.seq_len, 10).seqs[0],
+          "config 1: the segment")
+    target = torch.from_numpy(encode_dna(segment)).to(dev)
+
+    asm = Assembler(cfg, dev)
+    timer = StageTimer(dev, False)
+    rs = asm.simulate(target, timer)
+    reads = reads_of(rs)
+    check(len(reads) == stats["stats"]["nr_of_reads"], "config 1: read count")
+    # the walk's buffer at this size: [W, contig_cap] uint8
+    kcodes, kvalid = kmer_window_codes(rs.codes, cfg.dbg_kmer, dtype=torch.int64)
+    kvalid = kvalid & rs.valid[:, None]
+    buf, _, _, _, n_walks, n_nodes = contigs_sparse(kcodes, kvalid, cfg.dbg_kmer, cfg.contig_cap)
+    check(buf.shape == (n_walks, cfg.contig_cap), f"config 1: walk buffer {tuple(buf.shape)}")
+    contigs = asm.contigs(rs.codes, rs.valid, timer)
+    check(contigs == native.contigs_from_reads_native(reads, cfg.dbg_kmer),
+          "config 1: contigs != native engine")
+    sols = cols["sequence"]
+    check(sorted(sols) == sorted(native.assemble_native(contigs, cfg.dbg_kmer, cfg.seed,
+                                                        cfg.n_orderings)),
+          "config 1: solutions != native merge")
+    probs = asm.table.combined.cpu().numpy()
+    scores, breaks = native.breakscore_native(sols, reads, probs)
+    check(np.array_equal(cols["kmer_breaks"], breaks), "config 1: kmer_breaks != native engine")
+    check(np.allclose(cols["bp_score_true"], scores, rtol=RTOL, atol=0),
+          "config 1: bp_score_true != native engine")
+    # the read FASTAs (sim/reads_io.py) of these reads, read back
+    fa1, _, ref = save_read_fastas(CONFIG1_DIR, 1, cfg, rs.codes.cpu().numpy(),
+                                   rs.valid.cpu().numpy(), rs.positions.cpu().numpy(), segment)
+    check(list(read_fasta(fa1).values()) == reads and list(read_fasta(ref).values()) == [segment]
+          and read_param_string(cfg) in fa1, "config 1: read FASTAs")
+
+    # the pipeline's own pack of the solutions: K1 (the path's launch gave
+    # the column), K3 and the plain DP on the real rows
+    mat, lens = pack_strings(sols, s_multiple=64, l_multiple=128)
+    args = (torch.from_numpy(mat).to(dev), torch.from_numpy(lens).to(dev), target)
+    n_real = len(sols)
+    got = keeps_device("K1", lambda: myers.batched_levenshtein_myers(*args, mode="NW"))
+    check(np.array_equal(cols["lev_dist_vs_true"], got.cpu().numpy()[:n_real]),
+          "config 1: lev_dist_vs_true != Myers kernel on the pipeline's pack")
+    k3 = keeps_device("K3", lambda: batched_levenshtein_prefix_min(*args, mode="NW"))
+    rec = record["prefix_min_levenshtein"]
+    rec["launches"] += batched_levenshtein_prefix_min.launches
+    rec["max_abs_err"] = max(rec["max_abs_err"], max_err(k3, got))
+    check(torch.equal(k3, got), f"config 1 {tuple(mat.shape)}: prefix-min != Myers")
+    t0 = time.perf_counter()
+    plain = batched_levenshtein(args[0][:n_real].contiguous(), args[1][:n_real].contiguous(),
+                                target, "NW")
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    rec = record["myers_levenshtein"]
+    rec["max_abs_err"] = max(rec["max_abs_err"], max_err(got[:n_real], plain))
+    check(torch.equal(got[:n_real], plain), "config 1: Myers != plain DP on the real rows")
+    k1_ms = cuda_ms(lambda: myers.batched_levenshtein_myers(*args, mode="NW"), 3)
+    k3_ms = cuda_ms(lambda: batched_levenshtein_prefix_min(*args, mode="NW"), 1)
+    bound = lev_bound_ms(args[1], cfg.seq_len, "words")
+    # one query runs on one SM: the longest row's bound there is 132 times its card bound
+    sm_bound = 132 * lev_bound_ms(torch.tensor([int(lens.max())]), cfg.seq_len, "words")
+    rec.update(config1_shape=[*mat.shape, cfg.seq_len], config1_launches=k1, config1_ms=k1_ms,
+               config1_bound_ms=bound, config1_sm_bound_ms=sm_bound,
+               config1_plain_real_rows_ms=1e3 * plain_s)
+    record["prefix_min_levenshtein"].update(
+        config1_ms=k3_ms, config1_bound_ms=lev_bound_ms(args[1], cfg.seq_len, "cells"))
+
+    longest = int(np.argmax(cols["sequence_len"]))
+    print(f"[17] config 1 (run --seq-len {cfg.seq_len} --read-len {cfg.read_len} --dbg-kmer "
+          f"{cfg.dbg_kmer} --n-orderings {cfg.n_orderings}): {len(reads)} reads, "
+          f"{int(kvalid.sum())} k-mer instances, {n_nodes} nodes, {len(contigs)} contigs, "
+          f"{n_real} solutions, the longest {cols['sequence_len'][longest]} bases at distance "
+          f"{cols['lev_dist_vs_true'][longest]}; contigs, solutions, breaks and scores equal "
+          "to the native engine, the distances to K3 and the plain DP")
+    print(f"[17] walk buffer: W {n_walks} x {cfg.contig_cap} = {buf.numel()} bytes")
+    print(f"[17] wall {wall:.3f} s from the command; stage ms: " + ", ".join(
+        f"{name} {1e3 * t:.2f}" for name, t in stats["timings"].items())
+          + f"; peak device memory {peak / 2**30:.3f} GiB ({peak} bytes); K1 launches {k1}")
+    print(f"[17] K1 NW {tuple(mat.shape)} x {cfg.seq_len}: {k1_ms:.3f} ms (CUDA events, 3 "
+          f"calls), bound {bound:.4f} ms on the card, {sm_bound:.3f} ms for the longest row on "
+          f"one SM ({sm_bound / k1_ms:.3f} of it); K3 {k3_ms:.3f} ms; the plain DP on the "
+          f"{n_real} real rows {plain_s:.3f} s")
+
+
+def phase_own_full(dev, record: dict) -> None:
+    """[18] BASELINE config 3: the reference's own study at full scale,
+    `study-own --batched --seg-batch 64` over the 7 grid rows x 200
+    experiments (studies/STUDY_own_full_r2.md's command), in process on the
+    card. Every artifact is checked for presence and row counts, K1 must run
+    once an experiment the runner ran (each row's last batch filled up with
+    its first segment) and K3 never, and on each row the experiments on both
+    sides of every batch boundary must equal Assembler.run_experiment on the
+    card. Prints the wall time and experiments/s of the study and each row,
+    the worker's merge seconds beside the overlapped stage, and the peak
+    device memory."""
+    from genomeassembler_dev_tpu_torch import cli
+    from genomeassembler_dev_tpu_torch.core.querytable import load_default_query_table
+    from genomeassembler_dev_tpu_torch.ops import myers
+    from genomeassembler_dev_tpu_torch.ops.prefix_min import batched_levenshtein_prefix_min
+    from genomeassembler_dev_tpu_torch.pipeline import results as res_io
+    from genomeassembler_dev_tpu_torch.pipeline.assembler import Assembler
+    from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
+    from genomeassembler_dev_tpu_torch.sim.segments import synthetic_segment_store
+
+    iters, batch = OWN_FULL_ITERS, OWN_FULL_BATCH
+    serial_dir = OWN_FULL_DIR + "_serial"
+    for d in (OWN_FULL_DIR, serial_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    myers.batched_levenshtein_myers.launches = 0
+    batched_levenshtein_prefix_min.launches = 0
+    t0 = time.time()
+    cli.main(["study-own", "--synthetic", "--total-iters", str(iters), "--seq-len", "1000",
+              "--coverage", "40", "--n-orderings", "10000", "--batched", "--seg-batch",
+              str(batch), "--device", "cuda", "--workdir", OWN_FULL_DIR])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    grid = ExperimentConfig.OWN_STUDY_GRID
+    n_exp = len(grid) * iters
+    runs = len(grid) * -(-iters // batch) * batch  # the fillers of each row's last batch too
+    k1 = myers.batched_levenshtein_myers.launches
+    check(k1 == runs, f"own study: Myers launches {k1}, not one for each of {runs} runs")
+    check(batched_levenshtein_prefix_min.launches == 0, "own study: prefix-min launched")
+    record["myers_levenshtein"]["launches"] += k1
+    print(f"[18] study-own --batched --seg-batch {batch}: {n_exp} experiments in {wall:.3f} s "
+          f"({n_exp / wall:.3f} experiments/s), {runs} runs with the fillers, Myers launches "
+          f"{k1}; peak device memory {peak / 2**30:.3f} GiB ({peak} bytes)")
+
+    base = ExperimentConfig(seq_len=1000, read_len=12, dbg_kmer=9, kmer=8, coverage_target=40.0,
+                            seed=1234, n_orderings=10000)
+    segs = synthetic_segment_store(base.seed, base.seq_len, iters)
+    table = load_default_query_table(dev)
+    # both sides of every batch boundary, 1-based: the first and last of each batch
+    samples = sorted({i for lo in range(0, iters, batch) for i in (lo + 1, min(lo + batch, iters))})
+    n_solutions = 0
+    last = t0
+    for read_len, dbg_kmer in grid:
+        cfg = base.with_(read_len=read_len, dbg_kmer=dbg_kmer)
+        paths = [res_io.solutions_path(OWN_FULL_DIR, i, cfg) for i in range(1, iters + 1)]
+        check(all(os.path.exists(p) and os.path.exists(res_io.stats_path(OWN_FULL_DIR, i + 1, cfg))
+                  for i, p in enumerate(paths)), f"own row {read_len}:{dbg_kmer}: artifacts")
+        row_end = max(os.path.getmtime(p) for p in paths)
+        secs, last = row_end - last, row_end
+        for p in paths:
+            with open(p) as f:
+                n_solutions += sum(1 for _ in f) - 1
+        merge_s = overlap_s = 0.0  # each batch's stages, read from its first experiment
+        for lo in range(0, iters, batch):
+            with open(res_io.stats_path(OWN_FULL_DIR, lo + 1, cfg)) as f:
+                t = json.load(f)["timings"]
+            merge_s += t["Merging shuffled contig orderings (worker thread)"]
+            overlap_s += t["Merging + evaluating solutions (overlapped)"]
+        asm = Assembler(cfg, dev, table)
+        for ind in samples:
+            what = f"own row {read_len}:{dbg_kmer} exp {ind}"
+            res = asm.run_experiment(segs.seqs[ind - 1])
+            res_io.save_result(serial_dir, ind, cfg, res)
+            got, want = (res_io.load_result_columns(res_io.solutions_path(d, ind, cfg))
+                         for d in (OWN_FULL_DIR, serial_dir))
+            check_same_columns(f"{what} against Assembler.run_experiment", got, want)
+            with open(res_io.stats_path(OWN_FULL_DIR, ind, cfg)) as f:
+                check(json.load(f)["stats"] == json.loads(json.dumps(res.stats)),
+                      f"{what}: stats differ")
+        print(f"[18] row {read_len}:{dbg_kmer}: {iters} experiments in {secs:.3f} s "
+              f"({iters / secs:.3f} experiments/s, artifact write times); merges on the worker "
+              f"{merge_s:.3f} s of the overlapped stage's {overlap_s:.3f} s; experiments "
+              f"{', '.join(map(str, samples))} equal to Assembler.run_experiment")
+
+    out_dir = os.path.join(OWN_FULL_DIR, "IndustryModel_False")
+    for name, rows in (("results_summary.csv", 2 * n_exp), ("results_all.csv", n_solutions)):
+        with open(os.path.join(out_dir, name)) as f:
+            got = sum(1 for _ in f) - 1
+        check(got == rows, f"own study {name}: {got} rows, expected {rows}")
+    n_tables = len(glob.glob(os.path.join(OWN_FULL_DIR, "results", "exp_*", "SolutionsTable*")))
+    check(n_tables == n_exp, f"own study: {n_tables} SolutionsTables, expected {n_exp}")
+    print(f"[18] {n_tables} SolutionsTables, {n_solutions} solutions; results_summary.csv "
+          f"and results_all.csv hold a row for each; the fillers were {runs - n_exp} of "
+          f"{runs} runs ({(runs - n_exp) / runs:.3f})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1362,10 +1648,6 @@ def main() -> int:
         for name, t in res.timings.items():
             stage_sum[name] = stage_sum.get(name, 0.0) + t
     probs = asm.table.combined.cpu().numpy()
-
-    def reads_of(rs) -> list[str]:
-        valid = rs.valid.cpu().numpy()
-        return ["".join("ACGT"[b] for b in r) for r in rs.codes.cpu().numpy()[valid]]
 
     for i, (segment, res) in enumerate(zip(segments, results)):
         cols = res.columns
@@ -1777,19 +2059,7 @@ def main() -> int:
             what = f"batched row {read_len}:{dbg_kmer} exp {ind}"
             got, want = (res_io.load_result_columns(res_io.solutions_path(d, ind, cfg))
                          for d in (dirs["batched"], dirs["serial"]))
-            check(list(got) == RESULT_COLUMNS, f"{what}: columns")
-            check(got["sequence"] == want["sequence"], f"{what}: solutions != serial")
-            for col in RESULT_COLUMNS[1:]:
-                a, b = np.asarray(got[col]), np.asarray(want[col])
-                if col in ("sequence_len", "kmer_breaks", "lev_dist_vs_true"):
-                    check(np.array_equal(a, b), f"{what}: {col} != serial")
-                elif col.startswith("stat_test_KS"):
-                    check(np.array_equal(np.isnan(a), np.isnan(b)) and np.allclose(
-                        a[~np.isnan(b)], b[~np.isnan(b)], rtol=0, atol=1e-6),
-                        f"{what}: {col} != serial")
-                else:
-                    check(np.allclose(a, b, rtol=RTOL, atol=0, equal_nan=True),
-                          f"{what}: {col} != serial")
+            check_same_columns(f"{what} against the serial run", got, want)
             stats = []
             for d in (dirs["batched"], dirs["serial"]):
                 with open(res_io.stats_path(d, ind, cfg)) as f:
@@ -1897,6 +2167,12 @@ def main() -> int:
 
     # -- phase 16: the headline bench -----------------------------------------
     phase_bench(dev, record)
+
+    # -- phase 17: BASELINE config 1, cli run at 50 kb ------------------------
+    phase_config1(dev, record)
+
+    # -- phase 18: BASELINE config 3, the own study at full scale -------------
+    phase_own_full(dev, record)
 
     print(f"[7] total {time.perf_counter() - t_start:.1f} s")
 

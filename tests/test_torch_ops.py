@@ -80,9 +80,12 @@ class TestWindows:
 
 
 def adversarial_match_inputs(rng, read_len):
-    """Padded paths, an all-T stretch, duplicate reads, invalid read slots."""
-    paths = [rand_dna(rng, int(rng.integers(50, 120))) for _ in range(5)]
-    paths[0] = paths[0][:10] + "T" * 40 + paths[0][50:]
+    """Padded paths, an all-T stretch, duplicate reads, invalid read slots.
+    Reads longer than the 50-120-base paths (config 1's 150 bases) get paths
+    of 200-400 bases and a stretch of 170 Ts."""
+    lo, hi, run = (50, 120, 40) if read_len <= 47 else (200, 401, 170)
+    paths = [rand_dna(rng, int(rng.integers(lo, hi))) for _ in range(5)]
+    paths[0] = paths[0][:10] + "T" * run + paths[0][10 + run:]
     reads = []
     for _ in range(24):
         r = rng.random()
@@ -103,9 +106,10 @@ def adversarial_match_inputs(rng, read_len):
 
 
 class TestMatch:
-    @pytest.mark.parametrize("read_len", [12, 16, 31, 32, 40, 47])
+    @pytest.mark.parametrize("read_len", [12, 16, 31, 32, 40, 47, 150, 155])
     def test_vs_grid_and_sorted(self, read_len):
-        """One int64 key up to 31 bases, jointly ranked word tuples above."""
+        """One int64 key up to 31 bases, jointly ranked word tuples above:
+        up to five words (150 bases), and a short fifth (155)."""
         rng = np.random.default_rng(11 + read_len)
         args = adversarial_match_inputs(rng, read_len)
         tf, tp = t_match(*(torch.from_numpy(a) for a in args))

@@ -47,16 +47,29 @@ def jtable():
     return load_default_query_table()
 
 
-@pytest.fixture(scope="module")
-def replayed(jtable):
+# BASELINE config 1 cut to CPU size: its 150-base reads, dbg k 31 (JAX's
+# dbg/big_k.py path) and scoring, on a 2,400-base segment with a planted
+# 200-base repeat (longer than a read, so several solutions) at coverage 20
+CONFIG1 = dict(seq_len=2400, read_len=150, coverage_target=20.0, kmer=8, dbg_kmer=31,
+               seed=1234, n_orderings=300)
+# each case's config and its segment with a planted repeat, as (genome
+# length, cut, repeat start, repeat end, end): g[:cut] + g[start:end] + g[cut:end]
+REPLAYED = {"small": (SMALL, (300, 150, 30, 70, 260)),
+            "config1": (CONFIG1, (2400, 1200, 100, 300, 2200))}
+
+
+@pytest.fixture(scope="module", params=list(REPLAYED))
+def replayed(request, jtable):
     """One JAX-simulated read set (with a planted repeat, so several
     solutions) through both pipelines."""
-    g = synthetic_genome(42, 300)
-    segment = g[:150] + g[30:70] + g[150:260]
-    rs = generate_reads(jax.random.key(1234), encode_dna(segment), jtable, 12, 15.0)
+    cfg, (n, cut, lo, hi, end) = REPLAYED[request.param]
+    g = synthetic_genome(42, n)
+    segment = g[:cut] + g[lo:hi] + g[cut:end]
+    rs = generate_reads(jax.random.key(1234), encode_dna(segment), jtable, cfg["read_len"],
+                        cfg["coverage_target"])
     read_set = tuple(np.asarray(a) for a in (rs.codes, rs.valid, rs.positions))
-    jres = jasm.Assembler(JConfig(**SMALL), jtable).run_experiment(segment, read_set)
-    asm = tasm.Assembler(ExperimentConfig(**SMALL), "cpu",
+    jres = jasm.Assembler(JConfig(**cfg), jtable).run_experiment(segment, read_set)
+    asm = tasm.Assembler(ExperimentConfig(**cfg), "cpu",
                          QueryTable.from_numpy(jtable.probs, "cpu"))
     return jres, asm.run_experiment(segment, read_set)
 
