@@ -1,0 +1,14 @@
+"""Serial assembler: its evaluation stage (matcher, breakscore, random
+pass, K1, KS and the read-back), mean per experiment."""
+
+from portbench import readers
+
+LAYER = "serial assembler"
+UNIT = "ms"
+SOURCE = "program_span"
+BETTER = "lower"
+MOVES = "experiments_per_s"
+
+
+def read(run):
+    return readers.serial_mean_ms(run, (readers.EVALUATE,))

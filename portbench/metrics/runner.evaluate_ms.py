@@ -1,0 +1,14 @@
+"""Batched runner: its grouped evaluation stage (breakscore, random pass,
+KS, K1), per experiment written."""
+
+from portbench import readers
+
+LAYER = "batched runner"
+UNIT = "ms"
+SOURCE = "program_span"
+BETTER = "lower"
+MOVES = "experiments_per_s"
+
+
+def read(run):
+    return readers.study_ms_per_experiment(run, (readers.EVALUATE_GROUPED,))
