@@ -17,6 +17,7 @@ import torch
 from genomeassembler_dev_tpu_torch.merge import native
 from genomeassembler_dev_tpu_torch.merge.device import MAX_DBG_KMER, assemble_device
 from genomeassembler_dev_tpu_torch.spec import reference_semantics as spec
+from genomeassembler_dev_tpu_torch.utils.profiling import count, tracing
 
 
 def preferred_backend(n_contigs: int, n_orderings: int, native_ok: bool,
@@ -38,16 +39,25 @@ def assemble_solutions(contigs: list[str], dbg_kmer: int, seed: int,
     """Merge the shuffled ordering ensemble of `contigs` into solutions,
     sorted by (-length, lexicographic). The device backend runs on
     `device`; auto takes it only where `device` is CUDA and dbg_kmer at most
-    MAX_DBG_KMER (the velvet grid's rows 25:19 and 40:37 merge natively)."""
+    MAX_DBG_KMER (the velvet grid's rows 25:19 and 40:37 merge natively).
+    While a trace records, it counts the contigs in (merge.contigs), the
+    solutions out (merge.solutions) and the call under the backend it ran
+    (merge.calls.<backend>)."""
     if backend == "auto":
         backend = preferred_backend(
             len(contigs), n_orderings, True,
             torch.device(device).type == "cuda" and dbg_kmer <= MAX_DBG_KMER)
     if backend == "native":
-        return native.assemble_native(contigs, dbg_kmer, seed, n_orderings, n_threads)
-    if backend == "device":
-        return assemble_device(contigs, dbg_kmer, seed, n_orderings, device)
-    if backend == "spec":
-        return spec.assemble_solutions(spec.shuffled_orderings(contigs, seed, n_orderings),
+        sols = native.assemble_native(contigs, dbg_kmer, seed, n_orderings, n_threads)
+    elif backend == "device":
+        sols = assemble_device(contigs, dbg_kmer, seed, n_orderings, device)
+    elif backend == "spec":
+        sols = spec.assemble_solutions(spec.shuffled_orderings(contigs, seed, n_orderings),
                                        dbg_kmer)
-    raise ValueError(f"unknown backend {backend!r}")
+    else:
+        raise ValueError(f"unknown backend {backend!r}")
+    if tracing():
+        count(f"merge.calls.{backend}")
+        count("merge.contigs", len(contigs))
+        count("merge.solutions", len(sols))
+    return sols

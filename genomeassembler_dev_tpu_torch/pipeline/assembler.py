@@ -33,6 +33,7 @@ from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
 from genomeassembler_dev_tpu_torch.score.breakscore import BreakScores, breakscore, dot_f32
 from genomeassembler_dev_tpu_torch.sim.reads import (
     ReadSet, dedup_reads, generate_reads, probability_track)
+from genomeassembler_dev_tpu_torch.utils.profiling import annotate, count, tracing
 from genomeassembler_dev_tpu_torch.utils.timers import StageTimer
 
 RESULT_COLUMNS = [
@@ -227,28 +228,39 @@ class Assembler:
         cfg = self.config
         dev = self.device
         with timer.stage("Evaluating each de novo assembled solution"):
-            pmat_np, plens_np = pack_strings(solutions, s_multiple=64, l_multiple=128)
-            pmat = torch.from_numpy(pmat_np).to(dev)
-            plens = torch.from_numpy(plens_np).to(dev)
-            uniq, counts = dedup_reads(rs.codes, rs.valid)
-            rcodes, rcounts, rvalid = pad_reads(uniq, counts, cfg.read_chunk)
-            bs = breakscore(pmat, plens, rcodes, rcounts, rvalid,
-                            self.table.combined, break_kmer=cfg.kmer)
-            bp_rand, bp_rand_norm_breaks, bp_rand_norm_len = random_scores(bs, plens, self.uniform)
-            lev = batched_levenshtein_auto(pmat, plens, genome_codes, mode="NW")
-            ks = batched_ks_2samp(bs.path_freq, rs.track)
-            host = {name: t.cpu().numpy() for name, t in (
-                ("bp", bs.bp_score),
-                ("bp_nb", bs.bp_score_norm_by_break_freqs),
-                ("bp_nl", bs.bp_score_norm_by_len),
-                ("breaks", bs.kmer_breaks),
-                ("lev", lev),
-                ("ks", ks),
-                ("rand", bp_rand),
-                ("rand_nb", bp_rand_norm_breaks),
-                ("rand_nl", bp_rand_norm_len),
-            )}
-            return solution_columns(solutions, plens_np, host, cfg.seq_len)
+            with annotate("eval.pack"):
+                pmat_np, plens_np = pack_strings(solutions, s_multiple=64, l_multiple=128)
+                pmat = torch.from_numpy(pmat_np).to(dev)
+                plens = torch.from_numpy(plens_np).to(dev)
+                uniq, counts = dedup_reads(rs.codes, rs.valid)
+                rcodes, rcounts, rvalid = pad_reads(uniq, counts, cfg.read_chunk)
+            if tracing():
+                count("eval.bases", int(plens_np.sum()))
+                count("eval.cells", pmat_np.size)
+            with annotate("eval.breakscore"):
+                bs = breakscore(pmat, plens, rcodes, rcounts, rvalid,
+                                self.table.combined, break_kmer=cfg.kmer)
+            with annotate("eval.random"):
+                bp_rand, bp_rand_norm_breaks, bp_rand_norm_len = random_scores(
+                    bs, plens, self.uniform)
+            with annotate("eval.levenshtein"):
+                lev = batched_levenshtein_auto(pmat, plens, genome_codes, mode="NW")
+            with annotate("eval.ks"):
+                ks = batched_ks_2samp(bs.path_freq, rs.track)
+            with annotate("eval.readback"):
+                host = {name: t.cpu().numpy() for name, t in (
+                    ("bp", bs.bp_score),
+                    ("bp_nb", bs.bp_score_norm_by_break_freqs),
+                    ("bp_nl", bs.bp_score_norm_by_len),
+                    ("breaks", bs.kmer_breaks),
+                    ("lev", lev),
+                    ("ks", ks),
+                    ("rand", bp_rand),
+                    ("rand_nb", bp_rand_norm_breaks),
+                    ("rand_nl", bp_rand_norm_len),
+                )}
+            with annotate("eval.columns"):
+                return solution_columns(solutions, plens_np, host, cfg.seq_len)
 
     def count_only(self, rs: ReadSet, timer: StageTimer) -> dict[str, np.ndarray]:
         """The only_kmers_from_reads path: the histogram of the reads'

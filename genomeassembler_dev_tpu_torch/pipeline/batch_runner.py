@@ -51,6 +51,7 @@ from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
 from genomeassembler_dev_tpu_torch.pipeline.velvet import EVAL_BUDGET_BYTES
 from genomeassembler_dev_tpu_torch.score.breakscore import BreakScores, breakscore
 from genomeassembler_dev_tpu_torch.sim.reads import ReadSet, dedup_reads, generate_reads
+from genomeassembler_dev_tpu_torch.utils.profiling import annotate, count, tracing
 from genomeassembler_dev_tpu_torch.utils.timers import StageTimer
 
 KS_ROWS = 256  # solution rows one KS pooled sort takes
@@ -135,28 +136,31 @@ def _run_standard(cfg: ExperimentConfig, segments: list[str], device: torch.devi
         return []
     if len({len(s) for s in segments}) != 1:
         raise ValueError("the segments of one batch must share one length")
-    uniform = uniform if uniform is not None else QueryTable.uniform(device)
-    timer = StageTimer(device, verbose)
-    B = len(segments)
-    genome_np = np.stack([encode_dna(s) for s in segments])
-    genome = torch.from_numpy(genome_np).to(device)
+    with annotate("runner.setup"):
+        uniform = uniform if uniform is not None else QueryTable.uniform(device)
+        timer = StageTimer(device, verbose)
+        B = len(segments)
+        genome_np = np.stack([encode_dna(s) for s in segments])
+        genome = torch.from_numpy(genome_np).to(device)
 
     with timer.stage("Generating sequencing reads (batched)"):
         rs = simulate_batch(cfg, genome, table)
     with timer.stage("Running DBG de novo genome assembler (batched)"):
         contig_sets = contigs_from_read_codes_batched(rs.codes, rs.valid, cfg.dbg_kmer,
                                                       cfg.contig_cap)
-    n_reads = rs.valid.sum(dim=1).tolist()
+    with annotate("runner.n_reads"):
+        n_reads = rs.valid.sum(dim=1).tolist()
 
     solutions: list[list[str]] = [[] for _ in range(B)]
     packed: list[tuple] = [()] * B  # (pmat, plens) on the host, reads on the device
     columns: list[dict] = [{} for _ in range(B)]
 
     def merge(contigs):
-        t0 = time.perf_counter()
-        sols = assemble_solutions(contigs, cfg.dbg_kmer, cfg.seed, cfg.n_orderings,
-                                  backend=cfg.merge_backend, device=device)
-        return sols, time.perf_counter() - t0
+        with annotate("runner.merge"):
+            t0 = time.perf_counter()
+            sols = assemble_solutions(contigs, cfg.dbg_kmer, cfg.seed, cfg.n_orderings,
+                                      backend=cfg.merge_backend, device=device)
+            return sols, time.perf_counter() - t0
 
     def cap(members: list[int]) -> int:
         return group_size(score_group, max(packed[b][0].shape[0] for b in members),
@@ -167,44 +171,55 @@ def _run_standard(cfg: ExperimentConfig, segments: list[str], device: torch.devi
         with timer.stage("Evaluating each de novo assembled solution (grouped)"):
             # members share S (so each one's score dots take its serial call's
             # shape, see score/breakscore.py::dot_f32); widths and reads pad
-            G = len(members)
-            S = packed[members[0]][0].shape[0]
-            L = max(packed[b][0].shape[1] for b in members)
-            U = max(packed[b][2].shape[0] for b in members)
-            pm_np = np.full((G, S, L), INVALID, np.uint8)
-            pl_np = np.zeros((G, S), np.int32)
-            rc = torch.zeros((G, U, cfg.read_len), dtype=torch.uint8, device=device)
-            rn = torch.zeros((G, U), dtype=torch.int32, device=device)
-            rv = torch.zeros((G, U), dtype=torch.bool, device=device)
-            for gi, b in enumerate(members):
-                pmat, plens, rcodes, rcounts, rvalid = packed[b]
-                pm_np[gi, : pmat.shape[0], : pmat.shape[1]] = pmat
-                pl_np[gi, : plens.shape[0]] = plens
-                rc[gi, : rcodes.shape[0]] = rcodes
-                rn[gi, : rcounts.shape[0]] = rcounts
-                rv[gi, : rvalid.shape[0]] = rvalid
-            pm = torch.from_numpy(pm_np).to(device)
-            pl = torch.from_numpy(pl_np).to(device)
-            bs = score_rows(pm, pl, rc, rn, rv, table.combined, break_kmer=cfg.kmer)
-            rand, rand_nb, rand_nl = random_scores(bs, pl, uniform)
-            # KS in chunks of rows, each row against its own segment's track
-            path_freq = bs.path_freq.view(G * S, TOTAL)
-            row_seg = torch.tensor(members, device=device).repeat_interleave(S)
-            ks = torch.cat([batched_ks_2samp(path_freq[lo : lo + KS_ROWS],
-                                             rs.track[row_seg[lo : lo + KS_ROWS]])
-                            for lo in range(0, G * S, KS_ROWS)]).view(G, S)
-            # one Myers kernel call a member, against its own segment
-            lev = torch.stack([batched_levenshtein_auto(pm[gi], pl[gi], genome[b], mode="NW")
-                               for gi, b in enumerate(members)])
-            host = {name: t.cpu().numpy() for name, t in (
-                ("bp", bs.bp_score), ("bp_nb", bs.bp_score_norm_by_break_freqs),
-                ("bp_nl", bs.bp_score_norm_by_len), ("breaks", bs.kmer_breaks),
-                ("lev", lev), ("ks", ks), ("rand", rand), ("rand_nb", rand_nb),
-                ("rand_nl", rand_nl))}
-            for gi, b in enumerate(members):
-                columns[b] = solution_columns(solutions[b], packed[b][1],
-                                              {name: a[gi] for name, a in host.items()},
-                                              cfg.seq_len)
+            with annotate("eval.pack"):
+                G = len(members)
+                S = packed[members[0]][0].shape[0]
+                L = max(packed[b][0].shape[1] for b in members)
+                U = max(packed[b][2].shape[0] for b in members)
+                pm_np = np.full((G, S, L), INVALID, np.uint8)
+                pl_np = np.zeros((G, S), np.int32)
+                rc = torch.zeros((G, U, cfg.read_len), dtype=torch.uint8, device=device)
+                rn = torch.zeros((G, U), dtype=torch.int32, device=device)
+                rv = torch.zeros((G, U), dtype=torch.bool, device=device)
+                for gi, b in enumerate(members):
+                    pmat, plens, rcodes, rcounts, rvalid = packed[b]
+                    pm_np[gi, : pmat.shape[0], : pmat.shape[1]] = pmat
+                    pl_np[gi, : plens.shape[0]] = plens
+                    rc[gi, : rcodes.shape[0]] = rcodes
+                    rn[gi, : rcounts.shape[0]] = rcounts
+                    rv[gi, : rvalid.shape[0]] = rvalid
+                pm = torch.from_numpy(pm_np).to(device)
+                pl = torch.from_numpy(pl_np).to(device)
+            if tracing():
+                count("eval.bases", int(pl_np.sum()))
+                count("eval.cells", pm_np.size)
+            with annotate("eval.breakscore"):
+                bs = score_rows(pm, pl, rc, rn, rv, table.combined, break_kmer=cfg.kmer)
+            with annotate("eval.random"):
+                rand, rand_nb, rand_nl = random_scores(bs, pl, uniform)
+            with annotate("eval.ks"):
+                # KS in chunks of rows, each row against its own segment's track
+                path_freq = bs.path_freq.view(G * S, TOTAL)
+                row_seg = torch.tensor(members, device=device).repeat_interleave(S)
+                ks = torch.cat([batched_ks_2samp(path_freq[lo : lo + KS_ROWS],
+                                                 rs.track[row_seg[lo : lo + KS_ROWS]])
+                                for lo in range(0, G * S, KS_ROWS)]).view(G, S)
+            with annotate("eval.levenshtein"):
+                # one Myers kernel call a member, against its own segment
+                lev = torch.stack([batched_levenshtein_auto(pm[gi], pl[gi], genome[b],
+                                                            mode="NW")
+                                   for gi, b in enumerate(members)])
+            with annotate("eval.readback"):
+                host = {name: t.cpu().numpy() for name, t in (
+                    ("bp", bs.bp_score), ("bp_nb", bs.bp_score_norm_by_break_freqs),
+                    ("bp_nl", bs.bp_score_norm_by_len), ("breaks", bs.kmer_breaks),
+                    ("lev", lev), ("ks", ks), ("rand", rand), ("rand_nb", rand_nb),
+                    ("rand_nl", rand_nl))}
+            with annotate("eval.columns"):
+                for gi, b in enumerate(members):
+                    columns[b] = solution_columns(solutions[b], packed[b][1],
+                                                  {name: a[gi] for name, a in host.items()},
+                                                  cfg.seq_len)
 
     merge_seconds = 0.0
     pending: dict[int, list[int]] = {}  # open score groups by solution rows S
@@ -213,11 +228,13 @@ def _run_standard(cfg: ExperimentConfig, segments: list[str], device: torch.devi
         try:
             futs = [pool.submit(merge, c) for c in contig_sets]
             for b in range(B):
-                solutions[b], secs = futs[b].result()
+                with annotate("runner.merge_wait"):
+                    solutions[b], secs = futs[b].result()
                 merge_seconds += secs
-                pmat, plens = pack_strings(solutions[b], s_multiple=64, l_multiple=128)
-                uniq, counts = dedup_reads(rs.codes[b], rs.valid[b])
-                packed[b] = (pmat, plens) + pad_reads(uniq, counts, cfg.read_chunk)
+                with annotate("runner.pack"):
+                    pmat, plens = pack_strings(solutions[b], s_multiple=64, l_multiple=128)
+                    uniq, counts = dedup_reads(rs.codes[b], rs.valid[b])
+                    packed[b] = (pmat, plens) + pad_reads(uniq, counts, cfg.read_chunk)
                 S = pmat.shape[0]
                 # a member that would push its group over the cap opens the next
                 if len(pending.get(S, [])) >= cap(pending.get(S, []) + [b]):
@@ -233,7 +250,9 @@ def _run_standard(cfg: ExperimentConfig, segments: list[str], device: torch.devi
     # the merges' own time on the worker, inside the overlapped stage
     timer.times["Merging shuffled contig orderings (worker thread)"] = merge_seconds
 
-    return [ExperimentResult(columns=columns[b],
-                             stats=experiment_stats(cfg, segments[b], genome_np[b], n_reads[b]),
-                             timings=dict(timer.times))
-            for b in range(B)]
+    with annotate("runner.results"):
+        return [ExperimentResult(columns=columns[b],
+                                 stats=experiment_stats(cfg, segments[b], genome_np[b],
+                                                        n_reads[b]),
+                                 timings=dict(timer.times))
+                for b in range(B)]

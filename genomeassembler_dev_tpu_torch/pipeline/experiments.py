@@ -41,6 +41,7 @@ from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
 from genomeassembler_dev_tpu_torch.sim.reads_io import save_read_fastas
 from genomeassembler_dev_tpu_torch.sim.segments import SegmentStore
 from genomeassembler_dev_tpu_torch.utils.plots import require_matplotlib
+from genomeassembler_dev_tpu_torch.utils.profiling import annotate
 from genomeassembler_dev_tpu_torch.utils.timers import StageTimer
 
 
@@ -124,13 +125,15 @@ def run_own_study(
                 # JAX runner keeps one batch shape; the extra results go
                 segs_chunk = [segments.seqs[i - 1] for i in chunk]
                 segs_chunk += segs_chunk[:1] * (seg_batch - len(chunk))
-                results = run_experiments_batched(cfg, segs_chunk, device, table,
-                                                  verbose=verbose)
-                for i, res in zip(chunk, results):
-                    res_io.save_result(workdir, i, cfg, res)
-                    if plots:
-                        emit_experiment_plots(workdir, i, asm, res, segments.seqs[i - 1])
-                    n_run += 1
+                with annotate("study.batch"):
+                    results = run_experiments_batched(cfg, segs_chunk, device, table,
+                                                      verbose=verbose)
+                with annotate("study.save"):
+                    for i, res in zip(chunk, results):
+                        res_io.save_result(workdir, i, cfg, res)
+                        if plots:
+                            emit_experiment_plots(workdir, i, asm, res, segments.seqs[i - 1])
+                        n_run += 1
             continue
         for i in pending:
             res = asm.run_experiment(segments.seqs[i - 1])
@@ -148,8 +151,16 @@ def run_own_study(
         if os.path.isdir(reads_root):
             shutil.rmtree(reads_root, ignore_errors=True)
 
-    # aggregation (scripts/02_…:59-214): per experiment, mean of the
-    # length-normalised scores, true vs random
+    with annotate("study.aggregate"):
+        summary_path, all_path = _aggregate_own(workdir, base, grid, total_iters)
+    return StudyReport(summary_path, all_path, n_run, n_skip)
+
+
+def _aggregate_own(workdir: str, base: ExperimentConfig, grid, total_iters: int):
+    """The own study's aggregation (scripts/02_…:59-214): per experiment,
+    the mean of the length-normalised scores, true vs random
+    (results_summary.csv), and every solution's row (results_all.csv), read
+    back from the SolutionsTables; returns both paths."""
     summary_rows = []
     all_rows = []
     for read_len, dbg_kmer in grid:
@@ -174,7 +185,7 @@ def run_own_study(
                summary_rows)
     all_path = os.path.join(out_dir, "results_all.csv")
     _write_csv(all_path, RESULTS_ALL_HEADER, all_rows)
-    return StudyReport(summary_path, all_path, n_run, n_skip)
+    return summary_path, all_path
 
 
 def _save_reads(workdir: str, ind: int, asm: Assembler, segments: SegmentStore):

@@ -22,6 +22,7 @@ import numpy as np
 
 from genomeassembler_dev_tpu_torch.pipeline.assembler import RESULT_COLUMNS, ExperimentResult
 from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
+from genomeassembler_dev_tpu_torch.utils.profiling import annotate
 
 # the velvet path's solution table (pipeline/velvet.py)
 VELVET_RESULT_COLUMNS = [
@@ -83,20 +84,21 @@ def _canonical_names(cols: dict) -> list[str]:
 
 
 def save_result(workdir: str, ind: int, cfg: ExperimentConfig, res: ExperimentResult) -> str:
-    d = exp_dir(workdir, ind)
-    os.makedirs(d, exist_ok=True)
-    path = solutions_path(workdir, ind, cfg)
-    cols = res.columns
-    names = _canonical_names(cols)
-    n = len(cols[names[0]])
-    with open(path, "w", newline="") as f:
-        w = csv.writer(f)
-        w.writerow(names)
-        for i in range(n):
-            w.writerow([_fmt(cols[c][i]) for c in names])
-    with open(stats_path(workdir, ind, cfg), "w") as f:
-        json.dump({"stats": res.stats, "timings": res.timings}, f, indent=1)
-    return path
+    with annotate("results.save"):
+        d = exp_dir(workdir, ind)
+        os.makedirs(d, exist_ok=True)
+        path = solutions_path(workdir, ind, cfg)
+        cols = res.columns
+        names = _canonical_names(cols)
+        n = len(cols[names[0]])
+        with open(path, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(names)
+            for i in range(n):
+                w.writerow([_fmt(cols[c][i]) for c in names])
+        with open(stats_path(workdir, ind, cfg), "w") as f:
+            json.dump({"stats": res.stats, "timings": res.timings}, f, indent=1)
+        return path
 
 
 def load_result_columns(path: str) -> dict[str, np.ndarray | list]:

@@ -1,6 +1,7 @@
 """Stage banners and timing (mirrors genomeassembler_dev_tpu/utils/timers.py),
 with a device synchronise at the end of each stage on CUDA so a stage's time
-includes the kernels it queued."""
+includes the kernels it queued. Each stage is also a span of
+utils/profiling.py named by its message, so a trace places it on its clock."""
 
 from __future__ import annotations
 
@@ -8,6 +9,8 @@ import time
 from contextlib import contextmanager
 
 import torch
+
+from genomeassembler_dev_tpu_torch.utils.profiling import annotate
 
 
 class StageTimer:
@@ -23,14 +26,15 @@ class StageTimer:
     def stage(self, msg: str):
         if self.verbose:
             print(f"{msg}{'.' * max(0, 70 - len(msg))}", end="", flush=True)
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            dt = time.perf_counter() - t0
-            self.times[msg] = self.times.get(msg, 0.0) + dt
-            if self.verbose:
-                unit, val = ("secs", dt) if dt < 60 else ("mins", dt / 60)
-                print(f"DONE! -- {val:.3g} {unit}")
+        with annotate(msg):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                dt = time.perf_counter() - t0
+                self.times[msg] = self.times.get(msg, 0.0) + dt
+                if self.verbose:
+                    unit, val = ("secs", dt) if dt < 60 else ("mins", dt / 60)
+                    print(f"DONE! -- {val:.3g} {unit}")
