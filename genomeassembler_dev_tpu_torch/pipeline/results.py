@@ -22,7 +22,7 @@ import numpy as np
 
 from genomeassembler_dev_tpu_torch.pipeline.assembler import RESULT_COLUMNS, ExperimentResult
 from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
-from genomeassembler_dev_tpu_torch.utils.profiling import annotate
+from genomeassembler_dev_tpu_torch.utils.profiling import annotate, count
 
 # the velvet path's solution table (pipeline/velvet.py)
 VELVET_RESULT_COLUMNS = [
@@ -83,7 +83,31 @@ def _canonical_names(cols: dict) -> list[str]:
     return present + [c for c in cols if c not in schema]
 
 
+def _format_column(col) -> list[str]:
+    """A column's fields, as _fmt formats them one cell at a time: a 1-D
+    float array (float64 or narrower; tolist() gives each value's exact
+    float64) or int, uint or bool array through tolist() at once, anything
+    else a cell at a time."""
+    if isinstance(col, np.ndarray) and col.ndim == 1:
+        if col.dtype.kind == "f" and col.itemsize <= 8:
+            return ["NA" if x != x else repr(x) for x in col.tolist()]
+        if col.dtype.kind in "iub":
+            return list(map(str, col.tolist()))
+    return [_fmt(v) for v in col]
+
+
+def _unquoted(fields) -> bool:
+    """Whether csv's QUOTE_MINIMAL writes every one of these fields as it is."""
+    text = "".join(fields)
+    return not any(ch in text for ch in ',"\r\n')
+
+
 def save_result(workdir: str, ind: int, cfg: ExperimentConfig, res: ExperimentResult) -> str:
+    """Write an experiment's SolutionsTable and stats. The table is formatted
+    a column at a time and written at once, in the bytes csv.writer gives;
+    where csv would quote a field (a `,`, `"`, CR or LF in it, or the one
+    field of a one-column row empty) or a column's length differs from the
+    first's, csv.writer writes it."""
     with annotate("results.save"):
         d = exp_dir(workdir, ind)
         os.makedirs(d, exist_ok=True)
@@ -91,35 +115,67 @@ def save_result(workdir: str, ind: int, cfg: ExperimentConfig, res: ExperimentRe
         cols = res.columns
         names = _canonical_names(cols)
         n = len(cols[names[0]])
+        fields = [_format_column(cols[c]) for c in names]
+        plain = (all(len(f) == n for f in fields)
+                 and all(map(_unquoted, [names, *fields]))
+                 and (len(names) > 1 or "" not in [names[0], *fields[0]]))
         with open(path, "w", newline="") as f:
-            w = csv.writer(f)
-            w.writerow(names)
-            for i in range(n):
-                w.writerow([_fmt(cols[c][i]) for c in names])
+            if plain:
+                f.write("\r\n".join([",".join(names), *map(",".join, zip(*fields))]) + "\r\n")
+            else:
+                count("results.codec_fallback")
+                w = csv.writer(f)
+                w.writerow(names)
+                for i in range(n):
+                    w.writerow([_fmt(cols[c][i]) for c in names])
+        count("results.rows_written", n)
         with open(stats_path(workdir, ind, cfg), "w") as f:
-            json.dump({"stats": res.stats, "timings": res.timings}, f, indent=1)
+            f.write(json.dumps({"stats": res.stats, "timings": res.timings}, indent=1))
         return path
 
 
+def _split_unquoted(text: str) -> list[list[str]] | None:
+    """The rows csv.reader gives of `text`, where that is a split on line
+    ends and commas: no `"`, every line ended by CRLF or every one by LF, no
+    empty line, every row as wide as the first. Otherwise None."""
+    if not text or '"' in text:
+        return None
+    lines = text.split("\r\n" if "\r" in text else "\n")
+    if lines[-1] == "":
+        lines.pop()
+    if "" in lines or any("\r" in line or "\n" in line for line in lines):
+        return None
+    rows = [line.split(",") for line in lines]
+    width = len(rows[0])
+    if any(len(row) != width for row in rows):
+        return None
+    return rows
+
+
 def load_result_columns(path: str) -> dict[str, np.ndarray | list]:
-    """Read a SolutionsTable CSV back into column arrays."""
-    with open(path, newline="") as f:
-        r = csv.reader(f)
-        names = next(r)
-        rows = list(r)
+    """Read a SolutionsTable CSV back into column arrays: `sequence` a list of
+    str, every other column float64 with NA as NaN, and sequence_len,
+    kmer_breaks and lev_dist_vs_true int64 where they hold no NA. An unquoted
+    table is split on line ends and commas; any other goes through
+    csv.reader."""
+    with open(path, newline="\n") as f:  # no newline translation, as newline=""
+        rows = _split_unquoted(f.read())
+    if rows is not None:
+        names = rows[0]
+        columns = list(zip(*rows[1:])) if len(rows) > 1 else [()] * len(names)
+    else:
+        count("results.codec_fallback")
+        with open(path, newline="") as f:
+            r = csv.reader(f)
+            names = next(r)
+            rows = list(r)
+        columns = [[row[j] for row in rows] for j in range(len(names))]
     out: dict[str, np.ndarray | list] = {}
-    for j, name in enumerate(names):
-        vals = [row[j] for row in rows]
+    for name, vals in zip(names, columns):
         if name == "sequence":
-            out[name] = vals
+            out[name] = list(vals)
             continue
-        conv = []
-        for v in vals:
-            if v == "NA":
-                conv.append(np.nan)
-            else:
-                conv.append(float(v))
-        arr = np.asarray(conv)
+        arr = np.array([np.nan if v == "NA" else float(v) for v in vals], dtype=np.float64)
         if name in ("sequence_len", "kmer_breaks", "lev_dist_vs_true") and not np.isnan(arr).any():
             arr = arr.astype(np.int64)
         out[name] = arr

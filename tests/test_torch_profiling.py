@@ -248,6 +248,41 @@ def test_a_traced_study_and_experiment_record_every_span_and_equal_untraced():
     assert {s.name for s in serial.spans if s.parent == stage} == EVAL_SPANS
 
 
+def _save_and_load(workdir, sequence):
+    """save_result then load_result_columns of a three-row own table."""
+    from genomeassembler_dev_tpu_torch.pipeline import results
+    from genomeassembler_dev_tpu_torch.pipeline.assembler import RESULT_COLUMNS, ExperimentResult
+    from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
+
+    cols = {name: np.arange(3, dtype=np.float32) + 0.5 for name in RESULT_COLUMNS}
+    cols["sequence"] = ["ACGT", sequence, "GGTA"]
+    path = results.save_result(str(workdir), 1, ExperimentConfig(seq_len=300),
+                               ExperimentResult(cols, {}, {}))
+    written = profiling.collect().counters
+    results.load_result_columns(path)
+    return written, profiling.collect().counters
+
+
+def test_the_results_codec_counts_rows_and_no_fallback_for_dna(tmp_path):
+    profiling.collect()
+    with recording():
+        written, read = _save_and_load(tmp_path, "TTAC")
+    assert written == {"results.rows_written": 3} and read == {}
+
+
+def test_the_results_codec_counts_a_quoted_table_once_each_way(tmp_path):
+    profiling.collect()
+    with recording():
+        written, read = _save_and_load(tmp_path, 'TT"AC')
+    assert written == {"results.rows_written": 3, "results.codec_fallback": 1}
+    assert read == {"results.codec_fallback": 1}
+
+
+def test_the_results_codec_counts_nothing_untraced(tmp_path):
+    profiling.collect()
+    assert _save_and_load(tmp_path, 'TT"AC') == ({}, {})
+
+
 def test_trace_writes_the_program_record(tmp_path):
     with trace(str(tmp_path)) as prof:
         with annotate("region"):

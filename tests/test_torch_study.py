@@ -138,21 +138,190 @@ def result_columns(n=5, seed=0):
     return cols
 
 
-def test_save_result_byte_equal(tmp_path):
-    cols = result_columns()
+SCORE_COLUMNS = [c for c in RESULT_COLUMNS
+                 if c not in ("sequence", "sequence_len", "kmer_breaks", "lev_dist_vs_true")]
+
+
+def _own_nan():
+    cols = result_columns(6, seed=3)
+    for name in SCORE_COLUMNS:
+        cols[name][0] = np.nan
+    cols["stat_test_KS_random"][:] = np.nan
+    cols["lev_dist_vs_true"] = cols["lev_dist_vs_true"].astype(np.float32)
+    cols["lev_dist_vs_true"][2] = np.nan  # NA in an int column keeps it float64
+    return cols
+
+
+def _rows(cols, n):
+    return {name: col[:n] for name, col in cols.items()}
+
+
+def _long_row():
+    cols = _rows(result_columns(2, seed=5), 1)
+    cols["sequence"] = [jseg.synthetic_genome(6, 50_000)]
+    cols["sequence_len"][:] = 50_000
+    return cols
+
+
+def _velvet():
+    cols = result_columns(4, seed=7)
+    cols["path_prob_dist_startpos"] = np.array([0, 17, 301, 44], dtype=np.int64)
+    cols["contig_frac_len"] = np.full(4, 0.8125)
+    return cols
+
+
+def _int_extremes(dtype):
+    cols = result_columns(4, seed=8)
+    info = np.iinfo(dtype)
+    for name in ("sequence_len", "kmer_breaks", "lev_dist_vs_true"):
+        # int64's max would overflow the reader's float64 round trip
+        cols[name] = np.array([0, info.min, min(info.max, 2**62 + 1), 12], dtype=dtype)
+    return cols
+
+
+def _float_list():
+    cols = result_columns(5, seed=9)
+    cols["bp_score_true"] = [0.1, float("nan"), 1e-300, -2.5, 3.0]
+    return cols
+
+
+def _quoted():
+    cols = result_columns(4, seed=10)
+    cols["sequence"][1] = 'AC,G"T\nA'
+    return cols
+
+
+# tables as the program's callers hand them over, and the corners of csv's
+# quoting; the column-at-a-time writer must give csv.writer's bytes on each
+RESULT_TABLES = {
+    "own": result_columns,
+    "own_nan": _own_nan,
+    "zero_rows": lambda: _rows(result_columns(), 0),
+    "one_row_50kb": _long_row,
+    "velvet": _velvet,
+    "count_only": lambda: {"prob": np.random.default_rng(1).random(256).astype(np.float32),
+                           "count": np.arange(256, dtype=np.int64) * 7},
+    "float_list": _float_list,
+    "int32": lambda: _int_extremes(np.int32),
+    "int64": lambda: _int_extremes(np.int64),
+    "bool": lambda: {**result_columns(3, seed=11), "flag": np.array([True, False, True])},
+    "quoted_sequence": _quoted,
+    "one_column": lambda: {"prob": np.array([0.5, np.nan, 0.25], dtype=np.float32)},
+    "one_column_empty": lambda: {"label": ["a", "", "c"]},
+    "short_column": lambda: {**result_columns(4), "bp_score_true": np.ones(3, np.float32)},
+}
+
+
+def _save_both(tmp_path, cols):
+    """The table saved by the port and by the JAX package; returns both
+    paths after holding the tables and the stats byte-equal, and the
+    error both raised (a column shorter than the first), if any."""
     stats = {"coverage": 12.3, "nr_of_reads": 99, "genome_seq": "ACGT"}
     timings = {"Evaluating each de novo assembled solution": 0.5}
-    t = tres.save_result(str(tmp_path / "t"), 2, ExperimentConfig(**CFG),
-                         ExperimentResult(cols, stats, timings))
-    j = jres.save_result(str(tmp_path / "j"), 2, JConfig(**CFG), JResult(cols, stats, timings))
+    paths, errors = [], []
+    for side, mod, cfg, result in (("t", tres, ExperimentConfig(**CFG), ExperimentResult),
+                                   ("j", jres, JConfig(**CFG), JResult)):
+        try:
+            mod.save_result(str(tmp_path / side), 2, cfg, result(cols, stats, timings))
+            errors.append(None)
+        except IndexError as e:
+            errors.append(type(e))
+        paths.append((mod.solutions_path(str(tmp_path / side), 2, cfg),
+                      mod.stats_path(str(tmp_path / side), 2, cfg)))
+    (t, t_stats), (j, j_stats) = paths
+    assert errors[0] == errors[1]
     assert os.path.relpath(t, tmp_path / "t") == os.path.relpath(j, tmp_path / "j")
     assert filecmp.cmp(t, j, shallow=False)
-    assert filecmp.cmp(tres.stats_path(str(tmp_path / "t"), 2, ExperimentConfig(**CFG)),
-                       jres.stats_path(str(tmp_path / "j"), 2, JConfig(**CFG)), shallow=False)
-    got, want = tres.load_result_columns(t), jres.load_result_columns(j)
-    assert list(got) == list(want) == RESULT_COLUMNS
-    for name in RESULT_COLUMNS:
-        np.testing.assert_array_equal(np.asarray(got[name]), np.asarray(want[name]))
+    if errors[0] is None:
+        assert filecmp.cmp(t_stats, j_stats, shallow=False)
+    else:  # the table as far as it got, and no stats
+        assert not os.path.exists(t_stats) and not os.path.exists(j_stats)
+    return t, j, errors[0]
+
+
+def _load_both(path):
+    """Both packages' reading of one file: their columns, or their error."""
+    out = []
+    for mod in (tres, jres):
+        try:
+            out.append(mod.load_result_columns(path))
+        except (ValueError, IndexError) as e:
+            out.append((type(e), str(e)))
+    return out
+
+
+def assert_same_columns(got, want):
+    assert list(got) == list(want)
+    for name, w in want.items():
+        g = got[name]
+        assert type(g) is type(w), name
+        if isinstance(w, np.ndarray):
+            assert (g.dtype, g.shape) == (w.dtype, w.shape), name
+            np.testing.assert_array_equal(g, w, err_msg=name)  # NaN where NaN
+        else:
+            assert g == w, name
+
+
+@pytest.mark.parametrize("table", list(RESULT_TABLES))
+def test_save_result_byte_equal(tmp_path, table):
+    t, j, error = _save_both(tmp_path, RESULT_TABLES[table]())
+    if error is not None:
+        return
+    got, want = _load_both(t)[0], _load_both(j)[1]
+    if isinstance(want, tuple):  # a field that is no float: both refuse it
+        assert got == want
+        return
+    assert_same_columns(got, want)
+    if table == "own":
+        assert list(got) == RESULT_COLUMNS
+
+
+def _crlf_to_lf(path):
+    with open(path, "rb") as f:
+        data = f.read()
+    with open(path, "wb") as f:
+        f.write(data.replace(b"\r\n", b"\n"))
+
+
+def _quote_all(path):
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    with open(path, "w", newline="") as f:
+        csv.writer(f, quoting=csv.QUOTE_ALL).writerows(rows)
+
+
+def _row_with(path, change):
+    with open(path, newline="") as f:
+        lines = f.read().split("\r\n")
+    lines[2] = change(lines[2])
+    with open(path, "w", newline="") as f:
+        f.write("\r\n".join(lines))
+
+
+READ_TABLES = [t for t in RESULT_TABLES if t != "short_column"]
+
+
+@pytest.mark.parametrize("table,rewrite", [(t, None) for t in READ_TABLES] + [
+    ("own_nan", _crlf_to_lf), ("own_nan", _quote_all),
+    ("own", lambda p: _row_with(p, lambda r: r + ",1.5")),
+    ("own", lambda p: _row_with(p, lambda r: r.rsplit(",", 1)[0])),
+    ("one_column", lambda p: _row_with(p, lambda r: "")),
+    ("one_column", lambda p: _row_with(p, lambda r: r + "\n1.0"))],
+    ids=READ_TABLES + ["lf_line_ends", "quoted_fields", "long_row", "short_row", "empty_line",
+                       "mixed_line_ends"])
+def test_load_result_columns_vs_jax(tmp_path, table, rewrite):
+    cols = RESULT_TABLES[table]()
+    path = jres.save_result(str(tmp_path), 2, JConfig(**CFG), JResult(cols, {}, {}))
+    if rewrite is not None:
+        rewrite(path)
+    got, want = _load_both(path)
+    if isinstance(want, tuple):
+        assert got == want
+    else:
+        assert_same_columns(got, want)
+    if table == "own_nan":
+        assert want["lev_dist_vs_true"].dtype == np.float64
+        assert want["kmer_breaks"].dtype == np.int64
 
 
 def test_result_schema_check():
