@@ -25,6 +25,7 @@ device.
 from __future__ import annotations
 
 import csv
+import itertools
 import os
 import shutil
 from dataclasses import dataclass
@@ -41,7 +42,7 @@ from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
 from genomeassembler_dev_tpu_torch.sim.reads_io import save_read_fastas
 from genomeassembler_dev_tpu_torch.sim.segments import SegmentStore
 from genomeassembler_dev_tpu_torch.utils.plots import require_matplotlib
-from genomeassembler_dev_tpu_torch.utils.profiling import annotate
+from genomeassembler_dev_tpu_torch.utils.profiling import annotate, count
 from genomeassembler_dev_tpu_torch.utils.timers import StageTimer
 
 
@@ -61,12 +62,117 @@ RESULTS_ALL_HEADER = [
     "bp_score_norm_by_break_freqs_true", "bp_score_norm_by_len_true",
     "bp_score_true", "bp_score_random", "lev_dist_vs_true", "stat_test_KS_true",
 ]
+SUMMARY_HEADER = ["read_len", "dbg_kmer", "Key", "Value", "random_prob"]
+# the columns results_summary.csv takes an experiment's mean of: the own
+# study's (scripts/02_…:59-120) and the velvet study's (00_…:55-120)
+OWN_SUMMARY_KEYS = ("bp_score_norm_by_len_true", "bp_score_norm_by_len_random")
+VELVET_SUMMARY_KEYS = ("stat_test_KS_true", "stat_test_KS_random") + OWN_SUMMARY_KEYS
 
 
-def _results_all_rows(read_len: int, dbg_kmer: int, ind: int, cols: dict) -> list[list]:
-    """One results_all row per solution of a loaded SolutionsTable."""
-    return [[read_len, dbg_kmer, ind] + [cols[name][r] for name in RESULTS_ALL_HEADER[3:]]
-            for r in range(len(cols["sequence_len"]))]
+def _spelled_as_read(col: np.ndarray) -> list[str]:
+    """A column as load_result_columns reads it (float64 or int64), spelled
+    as csv.writer spells its numpy scalars: repr, NaN as "nan"."""
+    if col.dtype.kind == "f":
+        return ["nan" if x != x else repr(x) for x in col.tolist()]
+    return list(map(str, col.tolist()))
+
+
+def _field_column(name: str, col, fields: list[str]) -> list[str] | None:
+    """A column's results_all fields from the fields save_result_fields
+    wrote of it, in the bytes the read-back would give, or None where they
+    cannot be shown to be those bytes. A float field is the repr of the
+    value's float64, which the loader reads back exactly. A column the
+    loader turns to int64 is formatted from its values where it is float in
+    memory, and taken as written where it is an int within 2**53."""
+    if col.dtype.kind == "f":
+        if name in res_io.INT_COLUMNS and not np.isnan(col).any():
+            return _spelled_as_read(col.astype(np.float64).astype(np.int64))
+        return ["nan" if f == "NA" else f for f in fields] if "NA" in fields else fields
+    if (name in res_io.INT_COLUMNS
+            and -(2**53) <= int(col.min(initial=0)) and int(col.max(initial=0)) <= 2**53):
+        return fields
+    return None
+
+
+def _experiment_rows(read_len: int, dbg_kmer: int, ind: int, cols: dict, keys,
+                    fields: dict[str, list[str]] | None = None) -> tuple[str, list[float]] | None:
+    """An experiment's results_all.csv rows, as one block of CRLF-ended lines
+    in the bytes csv.writer gives, and the means of its summary `keys`.
+
+    `cols` is load_result_columns' reading of its table; or, with `fields`
+    ({name: the fields save_result_fields wrote}), the columns the table was
+    saved from, which give the same bytes and means without reading the
+    table back. Returns None where that cannot be shown: a column other
+    than `sequence` that is not a 1-D float (of at most 64 bits) or int
+    array, or a results_all column that _field_column refuses."""
+    if fields is None:
+        columns = [_spelled_as_read(cols[name]) for name in RESULTS_ALL_HEADER[3:]]
+    else:
+        if not all(isinstance(c, np.ndarray) and c.ndim == 1
+                   and (c.dtype.kind in "iu" or (c.dtype.kind == "f" and c.itemsize <= 8))
+                   for name, c in cols.items() if name != "sequence"):
+            return None
+        columns = [_field_column(name, cols[name], fields[name])
+                   for name in RESULTS_ALL_HEADER[3:]]
+        if None in columns:
+            return None
+    rows = list(map(",".join, zip(itertools.repeat(f"{read_len},{dbg_kmer},{ind}"), *columns)))
+    block = "\r\n".join(rows) + "\r\n" if rows else ""
+    means = []
+    for key in keys:
+        col = cols.get(key, ())
+        means.append(float(np.nanmean(np.asarray(col, np.float64))) if len(col) else float("nan"))
+    return block, means
+
+
+def _save(workdir: str, ind: int, cfg: ExperimentConfig, res, keys, kept: dict) -> None:
+    """save_result; where the table was written plain, the experiment's
+    results_all block and summary means go to kept[(read_len, dbg_kmer,
+    ind)] for _aggregate."""
+    _, names, fields, plain = res_io.save_result_fields(workdir, ind, cfg, res)
+    if plain:
+        rows = _experiment_rows(cfg.read_len, cfg.dbg_kmer, ind, res.columns, keys,
+                               dict(zip(names, fields)))
+        if rows is not None:
+            kept[(cfg.read_len, cfg.dbg_kmer, ind)] = rows
+
+
+def _aggregate(workdir: str, base: ExperimentConfig, grid, total_iters: int, keys,
+               kept: dict) -> tuple[str, str]:
+    """A study's aggregation: per experiment whose SolutionsTable exists, in
+    grid row then experiment order, the means of `keys` (results_summary.csv)
+    and every solution's row (results_all.csv), each file in one write of
+    csv.writer's bytes; returns both paths. An experiment's rows come from
+    `kept` (see _save) where it is there, else from its table read back.
+    kept holds about 46 KB a 510-row experiment: ~9 MB for a row of 200,
+    ~64 MB for the own study's 1,400."""
+    summary = [",".join(SUMMARY_HEADER) + "\r\n"]
+    blocks = [",".join(RESULTS_ALL_HEADER) + "\r\n"]
+    for read_len, dbg_kmer in grid:
+        cfg = base.with_(read_len=read_len, dbg_kmer=dbg_kmer)
+        for i in range(1, total_iters + 1):
+            path = res_io.solutions_path(workdir, i, cfg)
+            if not os.path.exists(path):
+                continue
+            rows = kept.get((read_len, dbg_kmer, i))
+            if rows is None:
+                count("study.tables_reread")
+                rows = _experiment_rows(read_len, dbg_kmer, i,
+                                       res_io.load_result_columns(path), keys)
+            else:
+                count("study.tables_from_memory")
+            block, means = rows
+            blocks.append(block)
+            summary += [f"{read_len},{dbg_kmer},{key.rsplit('_', 1)[0]},{mean!r},"
+                        f"{key.endswith('_random')}\r\n" for key, mean in zip(keys, means)]
+    out_dir = os.path.join(workdir, f"IndustryModel_{base.industry_standard}")
+    os.makedirs(out_dir, exist_ok=True)
+    paths = (os.path.join(out_dir, "results_summary.csv"),
+             os.path.join(out_dir, "results_all.csv"))
+    for path, text in zip(paths, (summary, blocks)):
+        with open(path, "w", newline="") as f:
+            f.write("".join(text))
+    return paths
 
 
 @dataclass
@@ -112,6 +218,7 @@ def run_own_study(
     table = table if table is not None else load_default_query_table(device)
 
     n_run = n_skip = 0
+    kept: dict = {}
     for read_len, dbg_kmer in grid:
         cfg = base.with_(read_len=read_len, dbg_kmer=dbg_kmer)
         pending = [i for i in range(1, total_iters + 1)
@@ -130,14 +237,14 @@ def run_own_study(
                                                       verbose=verbose)
                 with annotate("study.save"):
                     for i, res in zip(chunk, results):
-                        res_io.save_result(workdir, i, cfg, res)
+                        _save(workdir, i, cfg, res, OWN_SUMMARY_KEYS, kept)
                         if plots:
                             emit_experiment_plots(workdir, i, asm, res, segments.seqs[i - 1])
                         n_run += 1
             continue
         for i in pending:
             res = asm.run_experiment(segments.seqs[i - 1])
-            res_io.save_result(workdir, i, cfg, res)
+            _save(workdir, i, cfg, res, OWN_SUMMARY_KEYS, kept)
             if cfg.save_read_files:
                 _save_reads(workdir, i, asm, segments)
             if plots:
@@ -152,40 +259,9 @@ def run_own_study(
             shutil.rmtree(reads_root, ignore_errors=True)
 
     with annotate("study.aggregate"):
-        summary_path, all_path = _aggregate_own(workdir, base, grid, total_iters)
+        summary_path, all_path = _aggregate(workdir, base, grid, total_iters,
+                                            OWN_SUMMARY_KEYS, kept)
     return StudyReport(summary_path, all_path, n_run, n_skip)
-
-
-def _aggregate_own(workdir: str, base: ExperimentConfig, grid, total_iters: int):
-    """The own study's aggregation (scripts/02_…:59-214): per experiment,
-    the mean of the length-normalised scores, true vs random
-    (results_summary.csv), and every solution's row (results_all.csv), read
-    back from the SolutionsTables; returns both paths."""
-    summary_rows = []
-    all_rows = []
-    for read_len, dbg_kmer in grid:
-        cfg = base.with_(read_len=read_len, dbg_kmer=dbg_kmer)
-        for i in range(1, total_iters + 1):
-            path = res_io.solutions_path(workdir, i, cfg)
-            if not os.path.exists(path):
-                continue
-            cols = res_io.load_result_columns(path)
-            for key in ("bp_score_norm_by_len_true", "bp_score_norm_by_len_random"):
-                mean = float(np.nanmean(cols[key])) if len(cols[key]) else float("nan")
-                summary_rows.append([
-                    read_len, dbg_kmer, "bp_score_norm_by_len", mean,
-                    key.endswith("_random"),
-                ])
-            all_rows += _results_all_rows(read_len, dbg_kmer, i, cols)
-
-    out_dir = os.path.join(workdir, f"IndustryModel_{base.industry_standard}")
-    summary_path = os.path.join(out_dir, "results_summary.csv")
-    _write_csv(summary_path,
-               ["read_len", "dbg_kmer", "Key", "Value", "random_prob"],
-               summary_rows)
-    all_path = os.path.join(out_dir, "results_all.csv")
-    _write_csv(all_path, RESULTS_ALL_HEADER, all_rows)
-    return summary_path, all_path
 
 
 def _save_reads(workdir: str, ind: int, asm: Assembler, segments: SegmentStore):
@@ -383,6 +459,7 @@ def run_velvet_study(
     table = table if table is not None else load_default_query_table(device)
 
     n_run = n_skip = 0
+    kept: dict = {}
     for read_len, dbg_kmer in grid:
         cfg = base.with_(read_len=read_len, dbg_kmer=dbg_kmer)
         asm = IndustryAssembler(cfg, device, table, verbose=verbose)
@@ -392,35 +469,14 @@ def run_velvet_study(
                 continue
             contigs = contig_source(asm, segments.seqs[i - 1], i)
             res = asm.run_external(segments.seqs[i - 1], contigs)
-            res_io.save_result(workdir, i, cfg, res)
+            _save(workdir, i, cfg, res, VELVET_SUMMARY_KEYS, kept)
             n_run += 1
 
     # aggregation (scripts/00_…:55-120): per-experiment mean rows of the KS
     # and length-normalised scores, and per-solution results_all rows
     # (00_…:175-216)
-    summary_rows = []
-    all_rows = []
-    for read_len, dbg_kmer in grid:
-        cfg = base.with_(read_len=read_len, dbg_kmer=dbg_kmer)
-        for i in range(1, total_iters + 1):
-            path = res_io.solutions_path(workdir, i, cfg)
-            if not os.path.exists(path):
-                continue
-            cols = res_io.load_result_columns(path)
-            for key in ("stat_test_KS_true", "stat_test_KS_random",
-                        "bp_score_norm_by_len_true", "bp_score_norm_by_len_random"):
-                vals = cols.get(key, [])
-                mean = float(np.nanmean(vals)) if len(vals) else float("nan")
-                summary_rows.append([read_len, dbg_kmer, key.rsplit("_", 1)[0], mean,
-                                     key.endswith("_random")])
-            all_rows += _results_all_rows(read_len, dbg_kmer, i, cols)
-    out_dir = os.path.join(workdir, "IndustryModel_True")
-    summary_path = os.path.join(out_dir, "results_summary.csv")
-    _write_csv(summary_path,
-               ["read_len", "dbg_kmer", "Key", "Value", "random_prob"],
-               summary_rows)
-    all_path = os.path.join(out_dir, "results_all.csv")
-    _write_csv(all_path, RESULTS_ALL_HEADER, all_rows)
+    summary_path, all_path = _aggregate(workdir, base, grid, total_iters,
+                                        VELVET_SUMMARY_KEYS, kept)
     return StudyReport(summary_path, all_path, n_run, n_skip)
 
 

@@ -34,6 +34,9 @@ VELVET_RESULT_COLUMNS = [
     "bp_score_norm_by_len_random", "stat_test_KS_random",
 ]
 
+# the columns load_result_columns reads as int64 where they hold no NA
+INT_COLUMNS = ("sequence_len", "kmer_breaks", "lev_dist_vs_true")
+
 
 def exp_dir(workdir: str, ind: int) -> str:
     return os.path.join(workdir, "results", f"exp_{ind}")
@@ -103,11 +106,20 @@ def _unquoted(fields) -> bool:
 
 
 def save_result(workdir: str, ind: int, cfg: ExperimentConfig, res: ExperimentResult) -> str:
-    """Write an experiment's SolutionsTable and stats. The table is formatted
-    a column at a time and written at once, in the bytes csv.writer gives;
-    where csv would quote a field (a `,`, `"`, CR or LF in it, or the one
-    field of a one-column row empty) or a column's length differs from the
-    first's, csv.writer writes it."""
+    """Write an experiment's SolutionsTable and stats; returns the table's
+    path. See save_result_fields."""
+    return save_result_fields(workdir, ind, cfg, res)[0]
+
+
+def save_result_fields(workdir: str, ind: int, cfg: ExperimentConfig,
+                       res: ExperimentResult) -> tuple[str, list[str], list[list[str]], bool]:
+    """Write an experiment's SolutionsTable and stats, as save_result does;
+    returns (path, column names, each column's fields, plain). The table is
+    formatted a column at a time and written at once, in the bytes
+    csv.writer gives; where csv would quote a field (a `,`, `"`, CR or LF in
+    it, or the one field of a one-column row empty) or a column's length
+    differs from the first's, csv.writer writes it and `plain` is False.
+    The fields are the cells of the table written when `plain` is True."""
     with annotate("results.save"):
         d = exp_dir(workdir, ind)
         os.makedirs(d, exist_ok=True)
@@ -131,7 +143,7 @@ def save_result(workdir: str, ind: int, cfg: ExperimentConfig, res: ExperimentRe
         count("results.rows_written", n)
         with open(stats_path(workdir, ind, cfg), "w") as f:
             f.write(json.dumps({"stats": res.stats, "timings": res.timings}, indent=1))
-        return path
+        return path, names, fields, plain
 
 
 def _split_unquoted(text: str) -> list[list[str]] | None:
@@ -176,7 +188,7 @@ def load_result_columns(path: str) -> dict[str, np.ndarray | list]:
             out[name] = list(vals)
             continue
         arr = np.array([np.nan if v == "NA" else float(v) for v in vals], dtype=np.float64)
-        if name in ("sequence_len", "kmer_breaks", "lev_dist_vs_true") and not np.isnan(arr).any():
+        if name in INT_COLUMNS and not np.isnan(arr).any():
             arr = arr.astype(np.int64)
         out[name] = arr
     return out

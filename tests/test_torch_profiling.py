@@ -283,6 +283,35 @@ def test_the_results_codec_counts_nothing_untraced(tmp_path):
     assert _save_and_load(tmp_path, 'TT"AC') == ({}, {})
 
 
+def test_the_study_counts_tables_aggregated_from_memory_and_reread(tmp_path):
+    """A traced study aggregates every table it saved from the fields the
+    save formatted and reads back only those of an earlier call; untraced,
+    nothing is counted."""
+    from genomeassembler_dev_tpu_torch.core.querytable import load_default_query_table
+    from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
+    from genomeassembler_dev_tpu_torch.pipeline.experiments import run_own_study
+    from genomeassembler_dev_tpu_torch.sim.segments import synthetic_segment_store
+
+    table = load_default_query_table("cpu")
+    store = synthetic_segment_store(5, 300, 3)
+    base = ExperimentConfig(seq_len=300, coverage_target=12.0, kmer=8, seed=1234,
+                            n_orderings=50)
+
+    def study(wd, total_iters, batched):
+        run_own_study(str(wd), store, "cpu", base, grid=((12, 9),), total_iters=total_iters,
+                      table=table, batched=batched, seg_batch=2)
+        return profiling.collect().counters
+
+    profiling.collect()
+    assert study(tmp_path / "resumed", 2, True) == {}  # untraced
+    with recording():
+        fresh = study(tmp_path / "fresh", 3, True)
+    with recording():  # the serial loop adds experiment 3 to the untraced call's 2
+        resumed = study(tmp_path / "resumed", 3, False)
+    assert fresh["study.tables_from_memory"] == 3 and "study.tables_reread" not in fresh
+    assert (resumed["study.tables_from_memory"], resumed["study.tables_reread"]) == (1, 2)
+
+
 def test_trace_writes_the_program_record(tmp_path):
     with trace(str(tmp_path)) as prof:
         with annotate("region"):

@@ -476,3 +476,136 @@ def test_cli_run_and_refusals(tmp_path, capsys):
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):
             tcli.main(["study-own"] + args)
+
+
+# --- the studies' aggregation from the fields each save formatted ---------
+
+AGG_BASE = dict(seq_len=300, coverage_target=12.0, kmer=8, seed=1234, n_orderings=50)
+FROM_MEMORY, REREAD = "study.tables_from_memory", "study.tables_reread"
+
+
+@pytest.fixture(scope="module")
+def tables_jt():
+    """The query table, for the JAX package and for the port on the CPU."""
+    from genomeassembler_dev_tpu.core.querytable import load_default_query_table as jload
+    from genomeassembler_dev_tpu_torch.core.querytable import QueryTable
+
+    jt = jload()
+    return jt, QueryTable.from_numpy(jt.probs, "cpu")
+
+
+def _study(wd, tables, grid, total_iters, batched=True):
+    texp.run_own_study(wd, tseg.synthetic_segment_store(21, 300, total_iters), "cpu",
+                       ExperimentConfig(**AGG_BASE), grid=grid, total_iters=total_iters,
+                       table=tables[1], batched=batched, seg_batch=2)
+
+
+def _agg_fresh(wd, tables):
+    _study(wd, tables, ((12, 9),), 3)
+    return ((12, 9),), 3
+
+
+def _agg_resumed(wd, tables):
+    grid = ((12, 9), (16, 13))
+    _study(wd, tables, grid, 2)  # an earlier call: these tables are read back
+    _study(wd, tables, grid, 4)
+    return grid, 4
+
+
+def _agg_velvet(wd, tables):
+    base = ExperimentConfig(**AGG_BASE).with_(velvet_n_orderings=100)
+    segs = tseg.synthetic_segment_store(22, 300, 2)
+    texp.run_velvet_study(
+        wd, segs, lambda asm, seg, i: [seg[lo : lo + 120] for lo in range(0, 290, 110)],
+        "cpu", base, grid=((12, 11),), total_iters=2, table=tables[1])
+    return ((12, 11),), 2
+
+
+def _float_lev_no_nan():
+    cols = result_columns(5, seed=13)
+    # float in memory, no NaN: the loader reads it as int64, 13.0 as 13
+    # and 0.75 as 0
+    cols["lev_dist_vs_true"] = np.array([13.0, 0.75, 2.5e6, -3.0, 0.0], np.float32)
+    cols["kmer_breaks"] = np.array([1.0, 2.0, 300.0, 4.0, 5.0])
+    return cols
+
+
+def _saved(*tables):
+    """Saves `tables` as experiments 1.. of one row, as the study's saves do,
+    then aggregates them."""
+    def run(wd, _tables):
+        base = ExperimentConfig(**AGG_BASE)
+        cfg, kept = base.with_(read_len=12, dbg_kmer=9), {}
+        for i, make in enumerate(tables, 1):
+            texp._save(wd, i, cfg, ExperimentResult(make(), {}, {}), texp.OWN_SUMMARY_KEYS,
+                       kept)
+        texp._aggregate(wd, base, ((12, 9),), len(tables), texp.OWN_SUMMARY_KEYS, kept)
+        return ((12, 9),), len(tables)
+    return run
+
+
+# case: (how the workdir is made, tables aggregated from memory, tables read
+# back); a table whose fields cannot be shown to give the read-back's bytes
+# (the csv module wrote it, an int beyond 2**53, a list column, an int
+# column that the loader reads as float) is read back
+AGGREGATE_CASES = {
+    "batched_fresh": (_agg_fresh, 3, 0),
+    "resumed": (_agg_resumed, 4 + 4, 4),  # the earlier call aggregated its own 4
+    "nan_scores": (_saved(_own_nan, result_columns), 2, 0),
+    "float_lev_no_nan": (_saved(_float_lev_no_nan, _own_nan), 2, 0),
+    "zero_rows": (_saved(lambda: _rows(result_columns(), 0), result_columns), 2, 0),
+    "csv_fallback": (_saved(result_columns, _quoted), 1, 1),
+    "int64_beyond_2_53": (_saved(lambda: _int_extremes(np.int64), _own_nan), 1, 1),
+    "list_column": (_saved(_float_list, result_columns), 1, 1),
+    "int_score_column": (_saved(lambda: {**result_columns(4, seed=14),
+                                         "bp_score_true": np.arange(4, dtype=np.int32)},
+                                result_columns), 1, 1),
+    "velvet": (_agg_velvet, 2, 0),
+}
+
+
+def _study_csvs(wd, industry):
+    d = os.path.join(wd, f"IndustryModel_{industry}")
+    out = []
+    for name in ("results_summary.csv", "results_all.csv"):
+        with open(os.path.join(d, name), "rb") as f:
+            out.append(f.read())
+    return out
+
+
+@pytest.mark.parametrize("case", list(AGGREGATE_CASES))
+def test_aggregate_from_fields_byte_equal(tmp_path, tables_jt, case):
+    """Both CSVs of a study aggregated from the kept fields are the bytes of
+    the same workdir aggregated from its tables read back, and of the JAX
+    package's aggregation over the same tables (csv.writer over the numpy
+    scalars of each table read back)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from genomeassembler_dev_tpu_torch.utils import profiling
+
+    make, n_memory, n_reread = AGGREGATE_CASES[case]
+    wd = str(tmp_path)
+    velvet = case == "velvet"
+    keys = texp.VELVET_SUMMARY_KEYS if velvet else texp.OWN_SUMMARY_KEYS
+    profiling.collect()
+    with profile(activities=[ProfilerActivity.CPU]):
+        grid, total_iters = make(wd, tables_jt)
+    counters = profiling.collect().counters
+    assert (counters.get(FROM_MEMORY, 0), counters.get(REREAD, 0)) == (n_memory, n_reread)
+    got = _study_csvs(wd, velvet)
+
+    base = ExperimentConfig(**AGG_BASE).with_(industry_standard=velvet)
+    texp._aggregate(wd, base, grid, total_iters, keys, {})
+    assert _study_csvs(wd, velvet) == got
+
+    jbase, store = JConfig(**AGG_BASE), jseg.SegmentStore((), ())
+    if velvet:
+        jexp.run_velvet_study(wd, store, None, jbase, grid, total_iters, tables_jt[0])
+    else:
+        jexp.run_own_study(wd, store, jbase, grid, total_iters, tables_jt[0], batched=True)
+    assert _study_csvs(wd, velvet) == got
+    summary, rows = (csv_rows(os.path.join(wd, f"IndustryModel_{velvet}", name))
+                     for name in ("results_summary.csv", "results_all.csv"))
+    tables = glob.glob(os.path.join(wd, "results", "exp_*", "SolutionsTable*.csv"))
+    assert len(summary) == 1 + len(keys) * len(tables)
+    assert len(rows) == 1 + sum(len(tres.load_result_columns(t)["sequence_len"]) for t in tables)
