@@ -227,7 +227,7 @@ def slice_shape_args(dev):
     """(queries, lengths, target) at the slice's shape: 512 solutions padded
     to 2048 columns, real lengths 0..1030, against a 1 kb segment."""
     from genomeassembler_dev_tpu_torch.core.encoding import encode_dna
-    from genomeassembler_dev_tpu_torch.pipeline.assembler import pack_strings
+    from genomeassembler_dev_tpu_torch.pipeline.evaluate import pack_strings
 
     rng = np.random.default_rng(2)
     segment = rand_dna(rng, 1000)
@@ -500,9 +500,8 @@ def study_group(dev, cfg, segments: list[str]):
     its distinct reads to [G, U, R], as pipeline/batch_runner.py packs them;
     with the segments [G, L] and the read tracks [G, W]."""
     from genomeassembler_dev_tpu_torch.core.encoding import INVALID, encode_dna
-    from genomeassembler_dev_tpu_torch.pipeline.assembler import (
-        Assembler, pack_strings, pad_reads)
-    from genomeassembler_dev_tpu_torch.sim.reads import dedup_reads
+    from genomeassembler_dev_tpu_torch.pipeline.assembler import Assembler
+    from genomeassembler_dev_tpu_torch.pipeline.evaluate import pack_member
     from genomeassembler_dev_tpu_torch.utils.timers import StageTimer
 
     asm = Assembler(cfg, dev)
@@ -510,9 +509,8 @@ def study_group(dev, cfg, segments: list[str]):
     for seg in segments:
         genome = torch.from_numpy(encode_dna(seg)).to(dev)
         rs = asm.simulate(genome, StageTimer(dev, False))
-        pmat, plens = pack_strings(asm.run_experiment(seg).columns["sequence"],
-                                   s_multiple=64, l_multiple=128)
-        packed.append((pmat, plens) + pad_reads(*dedup_reads(rs.codes, rs.valid), cfg.read_chunk))
+        packed.append(pack_member(asm.run_experiment(seg).columns["sequence"], rs.codes,
+                                  rs.valid, cfg.read_chunk))
         genomes.append(genome)
         tracks.append(rs.track)
     G = len(segments)
@@ -558,7 +556,8 @@ def phase_parallel(dev, record: dict, model: dict) -> None:
     from genomeassembler_dev_tpu_torch.ops.windows import kmer_window_codes
     from genomeassembler_dev_tpu_torch.parallel import multihost, sharding
     from genomeassembler_dev_tpu_torch.parallel.table_sharding import make_sharded_table_lookup
-    from genomeassembler_dev_tpu_torch.pipeline.assembler import RESULT_COLUMNS, pack_strings
+    from genomeassembler_dev_tpu_torch.pipeline.assembler import RESULT_COLUMNS
+    from genomeassembler_dev_tpu_torch.pipeline.evaluate import pack_strings
     from genomeassembler_dev_tpu_torch.pipeline.batch_runner import run_experiments_batched
     from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
     from genomeassembler_dev_tpu_torch.score.breakscore import breakscore
@@ -744,11 +743,10 @@ def phase_repeat_velvet(dev, record: dict) -> None:
     from genomeassembler_dev_tpu_torch.ops import myers
     from genomeassembler_dev_tpu_torch.ops.prefix_min import batched_levenshtein_prefix_min
     from genomeassembler_dev_tpu_torch.pipeline import results as res_io
+    from genomeassembler_dev_tpu_torch.pipeline import evaluate as evaluation
     from genomeassembler_dev_tpu_torch.pipeline import velvet
-    from genomeassembler_dev_tpu_torch.pipeline.assembler import pack_strings, pad_reads
     from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
     from genomeassembler_dev_tpu_torch.pipeline.experiments import run_velvet_study
-    from genomeassembler_dev_tpu_torch.sim.reads import dedup_reads
     from genomeassembler_dev_tpu_torch.sim.segments import (
         read_fasta, synthetic_segment_store, write_fasta)
 
@@ -786,8 +784,8 @@ def phase_repeat_velvet(dev, record: dict) -> None:
     ((asm, sols, rs, genome, ev),) = seen
     n = len(sols)
     width = -(-max(map(len, sols)) // 128) * 128
-    n_reads = pad_reads(*dedup_reads(rs.codes, rs.valid), asm.config.read_chunk)[0].shape[0]
-    rows = velvet.eval_chunk_rows(width, n_reads, rs.track.shape[0])
+    n_reads = evaluation.pack_reads(rs.codes, rs.valid, asm.config.read_chunk)[0].shape[0]
+    rows = evaluation.eval_chunk_rows(width, n_reads, rs.track.shape[0])
     check(chunks == -(-n // rows) >= 2,
           f"repeat velvet: {n} solutions, {rows} rows a chunk, {chunks} chunks")
     cfg = base.with_(read_len=read_len, dbg_kmer=k)
@@ -804,16 +802,16 @@ def phase_repeat_velvet(dev, record: dict) -> None:
               f"repeat velvet: the table's {col} != its evaluate's")
     check(bool((cols["lev_dist_vs_true"] == 0).all()), "repeat velvet: a kept row's HW distance")
 
-    budget = velvet.EVAL_BUDGET_BYTES
-    velvet.EVAL_BUDGET_BYTES = budget * 5 // 8
-    other = velvet.eval_chunk_rows(width, n_reads, rs.track.shape[0])
+    budget = evaluation.EVAL_BUDGET_BYTES
+    evaluation.EVAL_BUDGET_BYTES = budget * 5 // 8
+    other = evaluation.eval_chunk_rows(width, n_reads, rs.track.shape[0])
     check(other % 64 == 0 and rows % other != 0 and -(-n // other) > chunks,
           f"repeat velvet: {other} rows a chunk do not move the boundaries")
     t0 = time.perf_counter()
     ev_other = asm.evaluate(sols, rs, genome)
     torch.cuda.synchronize()
     other_s = time.perf_counter() - t0
-    velvet.EVAL_BUDGET_BYTES = budget
+    evaluation.EVAL_BUDGET_BYTES = budget
     ev_64 = asm.evaluate(sols[:64], rs, genome)
     exact = []
     for key, got in ev.items():
@@ -825,7 +823,7 @@ def phase_repeat_velvet(dev, record: dict) -> None:
                 check(np.allclose(part, want, rtol=RTOL, atol=0, equal_nan=True),
                       f"repeat velvet {key}: {what}")
                 exact.append(np.array_equal(part, want, equal_nan=True))
-    mat, lens = pack_strings(sols[:64])
+    mat, lens = evaluation.pack_strings(sols[:64])
     batched_levenshtein_prefix_min.launches = 0
     k3 = batched_levenshtein_prefix_min(torch.from_numpy(mat).to(dev),
                                         torch.from_numpy(lens).to(dev), genome, mode="HW")
@@ -1149,9 +1147,10 @@ def phase_config1(dev, record: dict) -> None:
     from genomeassembler_dev_tpu_torch.ops.prefix_min import batched_levenshtein_prefix_min
     from genomeassembler_dev_tpu_torch.ops.windows import kmer_window_codes
     from genomeassembler_dev_tpu_torch.pipeline import results as res_io
-    from genomeassembler_dev_tpu_torch.pipeline.assembler import (
-        RESULT_COLUMNS, Assembler, pack_strings)
+    from genomeassembler_dev_tpu_torch.pipeline.assembler import RESULT_COLUMNS, Assembler
     from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
+    from genomeassembler_dev_tpu_torch.pipeline.evaluate import (
+        COL_MULTIPLE, ROW_MULTIPLE, pack_strings)
     from genomeassembler_dev_tpu_torch.sim.reads_io import read_param_string, save_read_fastas
     from genomeassembler_dev_tpu_torch.sim.segments import read_fasta, synthetic_segment_store
     from genomeassembler_dev_tpu_torch.utils.timers import StageTimer
@@ -1225,7 +1224,7 @@ def phase_config1(dev, record: dict) -> None:
 
     # the pipeline's own pack of the solutions: K1 (the path's launch gave
     # the column), K3 and the plain DP on the real rows
-    mat, lens = pack_strings(sols, s_multiple=64, l_multiple=128)
+    mat, lens = pack_strings(sols, s_multiple=ROW_MULTIPLE, l_multiple=COL_MULTIPLE)
     args = (torch.from_numpy(mat).to(dev), torch.from_numpy(lens).to(dev), target)
     n_real = len(sols)
     got = keeps_device("K1", lambda: myers.batched_levenshtein_myers(*args, mode="NW"))
@@ -1386,11 +1385,12 @@ def main() -> int:
     from genomeassembler_dev_tpu_torch.ops.prefix_min import batched_levenshtein_prefix_min
     from genomeassembler_dev_tpu_torch.ops.windows import kmer_window_codes
     from genomeassembler_dev_tpu_torch.pipeline import results as res_io
-    from genomeassembler_dev_tpu_torch.pipeline.assembler import (
-        RESULT_COLUMNS, Assembler, pack_strings)
+    from genomeassembler_dev_tpu_torch.pipeline.assembler import RESULT_COLUMNS, Assembler
     from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
+    from genomeassembler_dev_tpu_torch.pipeline.evaluate import (
+        COL_MULTIPLE, ROW_MULTIPLE, pack_strings, path_prob_profile)
     from genomeassembler_dev_tpu_torch.pipeline.velvet import (
-        VELVET_RESULT_COLUMNS, IndustryAssembler, path_prob_profile)
+        VELVET_RESULT_COLUMNS, IndustryAssembler)
     from genomeassembler_dev_tpu_torch.sim.segments import (
         synthetic_genome, synthetic_segment_store, write_fasta)
     from genomeassembler_dev_tpu_torch.utils.timers import StageTimer
@@ -1891,7 +1891,7 @@ def main() -> int:
 
     # K1 and the plain DP at the velvet path's real shape: [64, 50,048] with
     # one real 50,000-base row, HW, against the 50 kb segment
-    mat, lens = pack_strings([segment], s_multiple=64, l_multiple=128)
+    mat, lens = pack_strings([segment], s_multiple=ROW_MULTIPLE, l_multiple=COL_MULTIPLE)
     check(mat.shape == (64, 50048), f"velvet shape {mat.shape}")
     vargs = (torch.from_numpy(mat).to(dev), torch.from_numpy(lens).to(dev), target)
     row_args = (vargs[0][:1, :VELVET_LEN].contiguous(), vargs[1][:1].contiguous(), target)

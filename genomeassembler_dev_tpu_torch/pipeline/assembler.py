@@ -19,21 +19,19 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from genomeassembler_dev_tpu_torch.core.encoding import INVALID, encode_dna
+from genomeassembler_dev_tpu_torch.core.encoding import encode_dna
 from genomeassembler_dev_tpu_torch.core.querytable import (
     QueryTable, load_default_query_table)
 from genomeassembler_dev_tpu_torch.dbg.assemble import contigs_from_read_codes, dedup_contigs
 from genomeassembler_dev_tpu_torch.dbg.biased import biased_contigs
 from genomeassembler_dev_tpu_torch.merge.engine import assemble_solutions
-from genomeassembler_dev_tpu_torch.ops.edit_distance import batched_levenshtein_auto
 from genomeassembler_dev_tpu_torch.ops.histogram import count_kmers
-from genomeassembler_dev_tpu_torch.ops.ks import batched_ks_2samp
 from genomeassembler_dev_tpu_torch.ops.windows import kmer_window_codes
 from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
-from genomeassembler_dev_tpu_torch.score.breakscore import BreakScores, breakscore, dot_f32
-from genomeassembler_dev_tpu_torch.sim.reads import (
-    ReadSet, dedup_reads, generate_reads, probability_track)
-from genomeassembler_dev_tpu_torch.utils.profiling import annotate, count, tracing
+from genomeassembler_dev_tpu_torch.pipeline.evaluate import (
+    pack_member, evaluate_group, solution_columns)
+from genomeassembler_dev_tpu_torch.sim.reads import ReadSet, generate_reads, probability_track
+from genomeassembler_dev_tpu_torch.utils.profiling import annotate
 from genomeassembler_dev_tpu_torch.utils.timers import StageTimer
 
 RESULT_COLUMNS = [
@@ -67,39 +65,6 @@ class ExperimentResult:
         return len(self.columns["sequence"])
 
 
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-def pack_strings(strings: list[str], pad: int = INVALID, s_multiple: int = 1,
-                 l_multiple: int = 1):
-    """[S] strings -> ([S', L'] uint8 codes, [S'] int32 lens), both sizes
-    rounded up to their multiples (the JAX version's bucket ladder served
-    its jit cache). Pad rows have length 0."""
-    L = _round_up(max((len(s) for s in strings), default=1), l_multiple)
-    S = _round_up(max(len(strings), 1), s_multiple)
-    mat = np.full((S, L), pad, np.uint8)
-    lens = np.zeros(S, np.int32)
-    for i, s in enumerate(strings):
-        mat[i, : len(s)] = encode_dna(s)
-        lens[i] = len(s)
-    return mat, lens
-
-
-def pad_reads(uniq: torch.Tensor, counts: torch.Tensor, multiple: int = 512):
-    """Distinct reads padded to a multiple of rows; pad rows are invalid and
-    carry count 0. Returns (codes [U', R], counts [U'], valid [U'])."""
-    U = uniq.shape[0]
-    Up = _round_up(max(U, 1), multiple)
-    codes = torch.zeros((Up, uniq.shape[1]), dtype=torch.uint8, device=uniq.device)
-    cnts = torch.zeros(Up, dtype=torch.int32, device=uniq.device)
-    valid = torch.zeros(Up, dtype=torch.bool, device=uniq.device)
-    codes[:U] = uniq
-    cnts[:U] = counts
-    valid[:U] = True
-    return codes, cnts, valid
-
-
 def experiment_stats(cfg: ExperimentConfig, segment: str, genome_np: np.ndarray,
                      n_reads: int) -> dict:
     """The dbg_summary stats of one experiment."""
@@ -110,47 +75,6 @@ def experiment_stats(cfg: ExperimentConfig, segment: str, genome_np: np.ndarray,
         "nr_of_reads": n_reads,
         "genome_seq": segment,
     }
-
-
-def solution_columns(solutions: list[str], plens_np: np.ndarray, host: dict[str, np.ndarray],
-                     seq_len: int) -> dict[str, np.ndarray | list]:
-    """The own path's results table from every score of every solution
-    (host arrays in solution order, pad rows allowed past len(solutions)):
-    rows by true-table bp_score, descending and stable."""
-    n_real = len(solutions)
-    host = {name: a[:n_real] for name, a in host.items()}
-    # own-path coverage fraction: every startpos is 0, so it is the longest
-    # solution over seq_len, capped at 100%
-    max_len = int(plens_np.max()) if solutions else 0
-    contig_frac = min(100.0, 100.0 * max_len / seq_len)
-    order = np.argsort(-host["bp"], kind="stable")
-    return {
-        "sequence": [solutions[i] for i in order],
-        "sequence_len": plens_np[:n_real][order],
-        "bp_score_true": host["bp"][order],
-        "bp_score_norm_by_break_freqs_true": host["bp_nb"][order],
-        "bp_score_norm_by_len_true": host["bp_nl"][order],
-        "kmer_breaks": host["breaks"][order],
-        "lev_dist_vs_true": host["lev"][order],
-        "stat_test_KS_true": host["ks"][order],
-        "contig_frac_len": np.full(n_real, contig_frac),
-        "bp_score_random": host["rand"][order],
-        "bp_score_norm_by_break_freqs_random": host["rand_nb"][order],
-        "bp_score_norm_by_len_random": host["rand_nl"][order],
-        "stat_test_KS_random": host["ks"][order],
-    }
-
-
-def random_scores(bs: BreakScores, plens: torch.Tensor, uniform: QueryTable):
-    """The random pass: the same break counts against the uniform table.
-    Returns (bp_score, norm_by_break_freqs, norm_by_len), each [S] (a
-    group's [G, S])."""
-    uni = uniform.combined.to(torch.float32)
-    total = bs.kmer_breaks.to(torch.float32).clamp(min=1.0)
-    bp_rand = dot_f32(bs.site_counts, uni)
-    norm_breaks = torch.where(
-        bs.kmer_breaks > 0, dot_f32(bs.site_counts / total[..., None], uni), 0.0)
-    return bp_rand, norm_breaks, bp_rand / plens.to(torch.float32).clamp(min=1.0)
 
 
 class Assembler:
@@ -226,41 +150,14 @@ class Assembler:
     def score(self, solutions: list[str], rs: ReadSet, genome_codes: torch.Tensor,
               timer: StageTimer) -> dict[str, np.ndarray | list]:
         cfg = self.config
-        dev = self.device
         with timer.stage("Evaluating each de novo assembled solution"):
             with annotate("eval.pack"):
-                pmat_np, plens_np = pack_strings(solutions, s_multiple=64, l_multiple=128)
-                pmat = torch.from_numpy(pmat_np).to(dev)
-                plens = torch.from_numpy(plens_np).to(dev)
-                uniq, counts = dedup_reads(rs.codes, rs.valid)
-                rcodes, rcounts, rvalid = pad_reads(uniq, counts, cfg.read_chunk)
-            if tracing():
-                count("eval.bases", int(plens_np.sum()))
-                count("eval.cells", pmat_np.size)
-            with annotate("eval.breakscore"):
-                bs = breakscore(pmat, plens, rcodes, rcounts, rvalid,
-                                self.table.combined, break_kmer=cfg.kmer)
-            with annotate("eval.random"):
-                bp_rand, bp_rand_norm_breaks, bp_rand_norm_len = random_scores(
-                    bs, plens, self.uniform)
-            with annotate("eval.levenshtein"):
-                lev = batched_levenshtein_auto(pmat, plens, genome_codes, mode="NW")
-            with annotate("eval.ks"):
-                ks = batched_ks_2samp(bs.path_freq, rs.track)
-            with annotate("eval.readback"):
-                host = {name: t.cpu().numpy() for name, t in (
-                    ("bp", bs.bp_score),
-                    ("bp_nb", bs.bp_score_norm_by_break_freqs),
-                    ("bp_nl", bs.bp_score_norm_by_len),
-                    ("breaks", bs.kmer_breaks),
-                    ("lev", lev),
-                    ("ks", ks),
-                    ("rand", bp_rand),
-                    ("rand_nb", bp_rand_norm_breaks),
-                    ("rand_nl", bp_rand_norm_len),
-                )}
+                member = pack_member(solutions, rs.codes, rs.valid, cfg.read_chunk)
+            host = evaluate_group([member], genome_codes[None], rs.track[None], self.table,
+                                  self.uniform, cfg.kmer)
             with annotate("eval.columns"):
-                return solution_columns(solutions, plens_np, host, cfg.seq_len)
+                return solution_columns(solutions, member[1], {n: a[0] for n, a in host.items()},
+                                        cfg.seq_len)
 
     def count_only(self, rs: ReadSet, timer: StageTimer) -> dict[str, np.ndarray]:
         """The only_kmers_from_reads path: the histogram of the reads'

@@ -10,9 +10,9 @@ a batch of B segments of one length:
            graphs) and one doubling walk
   stage 3: each segment's ordering-ensemble merge, on one worker thread
   stage 4: segments with the same padded solution count S scored in groups
-           of G: one breakscore and one random pass over [G, S] solution
-           rows, KS in chunks of KS_ROWS rows, and one Myers kernel call a
-           member against its own segment
+           of G by pipeline/evaluate.py::evaluate_group: one breakscore and one
+           random pass over [G, S] solution rows, KS in chunks of KS_ROWS
+           rows, and one Myers kernel call a member against its own segment
 
 Stages 3 and 4 overlap: the worker merges segment b + 1 ... while the main
 thread packs and scores finished segments (the native merge's ctypes call
@@ -37,24 +37,19 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from genomeassembler_dev_tpu_torch.core.encoding import INVALID, encode_dna
-from genomeassembler_dev_tpu_torch.core.querytable import (
-    TOTAL, QueryTable, load_default_query_table)
+from genomeassembler_dev_tpu_torch.core.encoding import encode_dna
+from genomeassembler_dev_tpu_torch.core.querytable import QueryTable, load_default_query_table
 from genomeassembler_dev_tpu_torch.dbg.assemble import contigs_from_read_codes_batched
 from genomeassembler_dev_tpu_torch.merge.engine import assemble_solutions
-from genomeassembler_dev_tpu_torch.ops.edit_distance import batched_levenshtein_auto
-from genomeassembler_dev_tpu_torch.ops.ks import batched_ks_2samp
 from genomeassembler_dev_tpu_torch.pipeline.assembler import (
-    Assembler, ExperimentResult, experiment_stats, pack_strings, pad_reads, random_scores,
-    solution_columns)
+    Assembler, ExperimentResult, experiment_stats)
 from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
-from genomeassembler_dev_tpu_torch.pipeline.velvet import EVAL_BUDGET_BYTES
+from genomeassembler_dev_tpu_torch.pipeline.evaluate import (
+    evaluate_group, group_size, pack_member, solution_columns)
 from genomeassembler_dev_tpu_torch.score.breakscore import BreakScores, breakscore
-from genomeassembler_dev_tpu_torch.sim.reads import ReadSet, dedup_reads, generate_reads
-from genomeassembler_dev_tpu_torch.utils.profiling import annotate, count, tracing
+from genomeassembler_dev_tpu_torch.sim.reads import ReadSet, generate_reads
+from genomeassembler_dev_tpu_torch.utils.profiling import annotate
 from genomeassembler_dev_tpu_torch.utils.timers import StageTimer
-
-KS_ROWS = 256  # solution rows one KS pooled sort takes
 
 
 def simulate_batch(cfg: ExperimentConfig, genome: torch.Tensor, table: QueryTable) -> ReadSet:
@@ -64,19 +59,6 @@ def simulate_batch(cfg: ExperimentConfig, genome: torch.Tensor, table: QueryTabl
     gen = torch.Generator(device=genome.device)
     gen.manual_seed(cfg.seed)
     return generate_reads(gen, genome, table, cfg.read_len, cfg.coverage_target, cfg.kmer)
-
-
-def group_size(score_group: int, rows: int, width: int, n_reads: int, track_len: int) -> int:
-    """Members of one score group, each of at most `rows` solution rows of
-    `width` columns and `n_reads` distinct reads: at most score_group, and
-    few enough that the group stays under EVAL_BUDGET_BYTES. A row takes
-    four float32 [TOTAL] matrices (counts, normalised counts, path_freq,
-    the random pass's) and ~64 bytes a window and a read (the matcher's
-    keys, sort and break sites); one KS chunk takes its pooled sort, ~40
-    bytes an entry (values, two weights, the order, two float64 sums)."""
-    row_bytes = 16 * TOTAL + 64 * (width + n_reads)
-    ks_bytes = 40 * KS_ROWS * (TOTAL + track_len)
-    return max(1, min(score_group, (EVAL_BUDGET_BYTES - ks_bytes) // (row_bytes * rows)))
 
 
 def run_experiments_batched(
@@ -169,52 +151,8 @@ def _run_standard(cfg: ExperimentConfig, segments: list[str], device: torch.devi
 
     def score(members: list[int]) -> None:
         with timer.stage("Evaluating each de novo assembled solution (grouped)"):
-            # members share S (so each one's score dots take its serial call's
-            # shape, see score/breakscore.py::dot_f32); widths and reads pad
-            with annotate("eval.pack"):
-                G = len(members)
-                S = packed[members[0]][0].shape[0]
-                L = max(packed[b][0].shape[1] for b in members)
-                U = max(packed[b][2].shape[0] for b in members)
-                pm_np = np.full((G, S, L), INVALID, np.uint8)
-                pl_np = np.zeros((G, S), np.int32)
-                rc = torch.zeros((G, U, cfg.read_len), dtype=torch.uint8, device=device)
-                rn = torch.zeros((G, U), dtype=torch.int32, device=device)
-                rv = torch.zeros((G, U), dtype=torch.bool, device=device)
-                for gi, b in enumerate(members):
-                    pmat, plens, rcodes, rcounts, rvalid = packed[b]
-                    pm_np[gi, : pmat.shape[0], : pmat.shape[1]] = pmat
-                    pl_np[gi, : plens.shape[0]] = plens
-                    rc[gi, : rcodes.shape[0]] = rcodes
-                    rn[gi, : rcounts.shape[0]] = rcounts
-                    rv[gi, : rvalid.shape[0]] = rvalid
-                pm = torch.from_numpy(pm_np).to(device)
-                pl = torch.from_numpy(pl_np).to(device)
-            if tracing():
-                count("eval.bases", int(pl_np.sum()))
-                count("eval.cells", pm_np.size)
-            with annotate("eval.breakscore"):
-                bs = score_rows(pm, pl, rc, rn, rv, table.combined, break_kmer=cfg.kmer)
-            with annotate("eval.random"):
-                rand, rand_nb, rand_nl = random_scores(bs, pl, uniform)
-            with annotate("eval.ks"):
-                # KS in chunks of rows, each row against its own segment's track
-                path_freq = bs.path_freq.view(G * S, TOTAL)
-                row_seg = torch.tensor(members, device=device).repeat_interleave(S)
-                ks = torch.cat([batched_ks_2samp(path_freq[lo : lo + KS_ROWS],
-                                                 rs.track[row_seg[lo : lo + KS_ROWS]])
-                                for lo in range(0, G * S, KS_ROWS)]).view(G, S)
-            with annotate("eval.levenshtein"):
-                # one Myers kernel call a member, against its own segment
-                lev = torch.stack([batched_levenshtein_auto(pm[gi], pl[gi], genome[b],
-                                                            mode="NW")
-                                   for gi, b in enumerate(members)])
-            with annotate("eval.readback"):
-                host = {name: t.cpu().numpy() for name, t in (
-                    ("bp", bs.bp_score), ("bp_nb", bs.bp_score_norm_by_break_freqs),
-                    ("bp_nl", bs.bp_score_norm_by_len), ("breaks", bs.kmer_breaks),
-                    ("lev", lev), ("ks", ks), ("rand", rand), ("rand_nb", rand_nb),
-                    ("rand_nl", rand_nl))}
+            host = evaluate_group([packed[b] for b in members], genome, rs.track, table,
+                                  uniform, cfg.kmer, segs=members, score_rows=score_rows)
             with annotate("eval.columns"):
                 for gi, b in enumerate(members):
                     columns[b] = solution_columns(solutions[b], packed[b][1],
@@ -232,10 +170,9 @@ def _run_standard(cfg: ExperimentConfig, segments: list[str], device: torch.devi
                     solutions[b], secs = futs[b].result()
                 merge_seconds += secs
                 with annotate("runner.pack"):
-                    pmat, plens = pack_strings(solutions[b], s_multiple=64, l_multiple=128)
-                    uniq, counts = dedup_reads(rs.codes[b], rs.valid[b])
-                    packed[b] = (pmat, plens) + pad_reads(uniq, counts, cfg.read_chunk)
-                S = pmat.shape[0]
+                    packed[b] = pack_member(solutions[b], rs.codes[b], rs.valid[b],
+                                            cfg.read_chunk)
+                S = packed[b][0].shape[0]
                 # a member that would push its group over the cap opens the next
                 if len(pending.get(S, [])) >= cap(pending.get(S, []) + [b]):
                     score(pending.pop(S))

@@ -29,12 +29,12 @@ from genomeassembler_dev_tpu_torch.dbg.assemble import (  # noqa: E402
     contigs_from_read_codes, contigs_from_read_codes_batched)
 from genomeassembler_dev_tpu_torch.ops import ks as tks  # noqa: E402
 from genomeassembler_dev_tpu_torch.pipeline import batch_runner  # noqa: E402
-from genomeassembler_dev_tpu_torch.pipeline.assembler import (  # noqa: E402
-    RESULT_COLUMNS, Assembler, pack_strings, pad_reads)
+from genomeassembler_dev_tpu_torch.pipeline import evaluate  # noqa: E402
+from genomeassembler_dev_tpu_torch.pipeline.assembler import RESULT_COLUMNS, Assembler  # noqa: E402
 from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig  # noqa: E402
 from genomeassembler_dev_tpu_torch.score.breakscore import breakscore as t_breakscore  # noqa: E402
 from genomeassembler_dev_tpu_torch.sim.reads import (  # noqa: E402
-    ReadSet, dedup_reads, generate_reads, probability_track)
+    ReadSet, generate_reads, probability_track)
 from genomeassembler_dev_tpu_torch.sim.segments import synthetic_segment_store  # noqa: E402
 
 RTOL = 2e-5
@@ -149,9 +149,8 @@ def grouped_score_inputs(ttable, read_len):
         sols = [seg[int(a):int(a) + int(n)] for a, n in zip(rng.integers(0, 150, 9),
                                                             rng.integers(40, 150, 9))]
         sols.append("".join(rng.choice(list("ACGT"), 90)))
-        mat, lens = pack_strings(sols, s_multiple=16, l_multiple=128)
-        uniq, counts = dedup_reads(rs.codes[b], rs.valid[b])
-        codes, cnts, valid = pad_reads(uniq, counts, 64)
+        mat, lens = evaluate.pack_strings(sols, s_multiple=16, l_multiple=128)
+        codes, cnts, valid = evaluate.pack_reads(rs.codes[b], rs.valid[b], 64)
         pm.append(mat), pl.append(lens), rc.append(codes.numpy()), rn.append(cnts.numpy())
         rv.append(valid.numpy())
     U = max(len(c) for c in rc)
@@ -265,9 +264,9 @@ def test_batch_shapes_and_group_size(ttable, monkeypatch):
         batch_runner.run_experiments_batched(cfg, segments(1) + ["ACGT" * 50], "cpu", ttable)
     assert batch_runner.run_experiments_batched(cfg, [], "cpu", ttable) == []
     # the study shape: 64 solution rows of 1,152 columns, 3,584 distinct reads
-    assert batch_runner.group_size(8, 64, 1152, 3584, 993) == 8
+    assert evaluate.group_size(8, 64, 1152, 3584, 993) == 8
     row = 16 * 69904 + 64 * (1152 + 3584)
-    ks = 40 * batch_runner.KS_ROWS * (69904 + 993)
-    monkeypatch.setattr(batch_runner, "EVAL_BUDGET_BYTES", ks + 3 * 64 * row)
-    assert batch_runner.group_size(8, 64, 1152, 3584, 993) == 3
-    assert batch_runner.group_size(8, 256, 1152, 3584, 993) == 1
+    ks = 40 * evaluate.KS_ROWS * (69904 + 993)
+    monkeypatch.setattr(evaluate, "EVAL_BUDGET_BYTES", ks + 3 * 64 * row)
+    assert evaluate.group_size(8, 64, 1152, 3584, 993) == 3
+    assert evaluate.group_size(8, 256, 1152, 3584, 993) == 1

@@ -26,6 +26,7 @@ from genomeassembler_dev_tpu.sim.reads import generate_reads  # noqa: E402
 from genomeassembler_dev_tpu.sim.segments import synthetic_genome  # noqa: E402
 from genomeassembler_dev_tpu_torch.core.querytable import QueryTable  # noqa: E402
 from genomeassembler_dev_tpu_torch.pipeline import assembler as tasm  # noqa: E402
+from genomeassembler_dev_tpu_torch.pipeline import evaluate  # noqa: E402
 from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -52,10 +53,15 @@ def jtable():
 # 200-base repeat (longer than a read, so several solutions) at coverage 20
 CONFIG1 = dict(seq_len=2400, read_len=150, coverage_target=20.0, kmer=8, dbg_kmer=31,
                seed=1234, n_orderings=300)
+# a 1 kb segment (no repeat) at coverage 6 breaks into enough contigs for
+# 317 solutions: 320 padded rows, so the serial KS takes two chunks of KS_ROWS
+MANY = dict(seq_len=1000, read_len=12, coverage_target=6.0, kmer=8, dbg_kmer=9, seed=1234,
+            n_orderings=3000)
 # each case's config and its segment with a planted repeat, as (genome
 # length, cut, repeat start, repeat end, end): g[:cut] + g[start:end] + g[cut:end]
 REPLAYED = {"small": (SMALL, (300, 150, 30, 70, 260)),
-            "config1": (CONFIG1, (2400, 1200, 100, 300, 2200))}
+            "config1": (CONFIG1, (2400, 1200, 100, 300, 2200)),
+            "many": (MANY, (1000, 1000, 0, 0, 1000))}
 
 
 @pytest.fixture(scope="module", params=list(REPLAYED))
@@ -232,10 +238,10 @@ def test_unported_paths_raise(tmp_path):
 
 
 def test_pack_strings_pad_rows():
-    mat, lens = tasm.pack_strings(["ACG", "T"], s_multiple=4, l_multiple=8)
+    mat, lens = evaluate.pack_strings(["ACG", "T"], s_multiple=4, l_multiple=8)
     assert mat.shape == (4, 8) and lens.tolist() == [3, 1, 0, 0]
     assert (mat[1, 1:] == 255).all() and (mat[2:] == 255).all()
-    codes, counts, valid = tasm.pad_reads(torch.ones((3, 5), dtype=torch.uint8),
+    codes, counts, valid = evaluate.pad_reads(torch.ones((3, 5), dtype=torch.uint8),
                                           torch.tensor([2, 1, 4], dtype=torch.int32), 4)
     assert codes.shape == (4, 5) and counts.tolist() == [2, 1, 4, 0]
     assert valid.tolist() == [True, True, True, False]
@@ -260,6 +266,7 @@ def test_port_imports_no_jax():
         "genomeassembler_dev_tpu_torch.core.rng",
         "genomeassembler_dev_tpu_torch.spec.reference_semantics",
         "genomeassembler_dev_tpu_torch.pipeline.batch_runner",
+        "genomeassembler_dev_tpu_torch.pipeline.evaluate",
         "genomeassembler_dev_tpu_torch.sim.reads_io",
         "genomeassembler_dev_tpu_torch.sim.segments",
         "genomeassembler_dev_tpu_torch.utils.plots",

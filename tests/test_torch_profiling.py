@@ -204,6 +204,7 @@ def test_a_traced_study_and_experiment_record_every_span_and_equal_untraced():
     from genomeassembler_dev_tpu_torch.pipeline.assembler import Assembler
     from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
     from genomeassembler_dev_tpu_torch.pipeline.experiments import run_own_study
+    from genomeassembler_dev_tpu_torch.pipeline.velvet import IndustryAssembler
     from genomeassembler_dev_tpu_torch.sim.segments import SegmentStore, synthetic_genome
 
     table = load_default_query_table("cpu")
@@ -219,7 +220,12 @@ def test_a_traced_study_and_experiment_record_every_span_and_equal_untraced():
         return _tables(wd)
 
     asm = Assembler(base.with_(read_len=12, dbg_kmer=9), "cpu", table)
+    # the velvet path on tiles of the segment that overlap by dbg k - 1
+    vasm = IndustryAssembler(base.with_(read_len=12, dbg_kmer=11, industry_standard=True,
+                                        velvet_n_orderings=50), "cpu", table)
+    tiles = [segs[0][lo : lo + 100] for lo in range(0, 300, 90)]
     want_study, want_exp = study(), asm.run_experiment(segs[0]).columns
+    want_vel = vasm.run_external(segs[0], tiles).columns
     profiling.collect()
     with recording():
         got_study = study()
@@ -227,11 +233,16 @@ def test_a_traced_study_and_experiment_record_every_span_and_equal_untraced():
     with recording():
         got_exp = asm.run_experiment(segs[0]).columns
     serial = profiling.collect()
+    with recording():
+        got_vel = vasm.run_external(segs[0], tiles).columns
+    velvet = profiling.collect()
 
     assert got_study == want_study and len(got_study) == 5  # 3 tables + 2 summaries
-    assert list(got_exp) == list(want_exp)
-    for name, col in want_exp.items():
-        np.testing.assert_array_equal(np.asarray(got_exp[name]), np.asarray(col), err_msg=name)
+    for got, want in ((got_exp, want_exp), (got_vel, want_vel)):
+        assert list(got) == list(want)
+        for name, col in want.items():
+            np.testing.assert_array_equal(np.asarray(got[name]), np.asarray(col), err_msg=name)
+    assert len(want_vel["sequence"]) >= 1
     names = {s.name for s in rec.spans}
     assert RUNNER_SPANS | EVAL_SPANS <= names
     assert COUNTERS <= rec.counters.keys()
@@ -243,9 +254,12 @@ def test_a_traced_study_and_experiment_record_every_span_and_equal_untraced():
     assert SERIAL_SPANS | EVAL_SPANS <= {s.name for s in serial.spans}
     assert serial.counters["merge.calls.native"] == 1
     assert 0 < serial.counters["eval.bases"] <= serial.counters["eval.cells"]
-    stage = next(i for i, s in enumerate(serial.spans)
-                 if s.name == "Evaluating each de novo assembled solution")
-    assert {s.name for s in serial.spans if s.parent == stage} == EVAL_SPANS
+    # the serial and the velvet path's evaluation stages hold the same spans
+    for one in (serial, velvet):
+        stage = next(i for i, s in enumerate(one.spans)
+                     if s.name == "Evaluating each de novo assembled solution")
+        assert {s.name for s in one.spans if s.parent == stage} == EVAL_SPANS
+    assert 0 < velvet.counters["eval.bases"] <= velvet.counters["eval.cells"]
 
 
 def _save_and_load(workdir, sequence):

@@ -31,8 +31,9 @@ from genomeassembler_dev_tpu.sim.reads import generate_reads  # noqa: E402
 from genomeassembler_dev_tpu.sim.segments import plant_repeats, synthetic_genome  # noqa: E402
 from genomeassembler_dev_tpu.spec import reference_semantics as spec  # noqa: E402
 from genomeassembler_dev_tpu_torch import cli as tcli  # noqa: E402
-from genomeassembler_dev_tpu_torch.core.querytable import QueryTable  # noqa: E402
+from genomeassembler_dev_tpu_torch.core.querytable import TOTAL, QueryTable  # noqa: E402
 from genomeassembler_dev_tpu_torch.merge.engine import assemble_solutions  # noqa: E402
+from genomeassembler_dev_tpu_torch.pipeline import evaluate  # noqa: E402
 from genomeassembler_dev_tpu_torch.pipeline import results as tres_io  # noqa: E402
 from genomeassembler_dev_tpu_torch.pipeline import velvet as tvel  # noqa: E402
 from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig  # noqa: E402
@@ -188,10 +189,10 @@ def test_chunked_evaluation_equals_one_chunk(ttable, monkeypatch):
     genome = torch.from_numpy(encode_dna(segment))
     rs = asm.simulate(genome, tvel.StageTimer("cpu", verbose=False))
     whole = asm.evaluate(sols, rs, genome)
-    assert tvel.eval_chunk_rows(128, rs.codes.shape[0], rs.track.shape[0]) > 100
-    row_bytes = 64 * (128 + 512 + rs.track.shape[0]) + 16 * tvel.TOTAL
-    monkeypatch.setattr(tvel, "EVAL_BUDGET_BYTES", 64 * row_bytes)
-    assert tvel.eval_chunk_rows(128, 512, rs.track.shape[0]) == 64
+    assert evaluate.eval_chunk_rows(128, rs.codes.shape[0], rs.track.shape[0]) > 100
+    row_bytes = 64 * (128 + 512 + rs.track.shape[0]) + 16 * TOTAL
+    monkeypatch.setattr(evaluate, "EVAL_BUDGET_BYTES", 64 * row_bytes)
+    assert evaluate.eval_chunk_rows(128, 512, rs.track.shape[0]) == 64
     chunked = asm.evaluate(sols, rs, genome)
     assert whole.keys() == chunked.keys()
     for name in whole:
@@ -225,8 +226,8 @@ def test_golden_velvet_k15_rl12(ttable):
     np.testing.assert_allclose(ev["bp_nl"], ref["bp_score_norm_by_len"], rtol=RTOL)
     np.testing.assert_array_equal(ev["kmer_breaks"], ref["kmer_breaks"])
     np.testing.assert_array_equal(ev["lev"], ref["lev_dist_vs_true"])
-    pmat, plens = tvel.pack_strings(paths)
-    prof, valid = tvel.path_prob_profile(torch.from_numpy(pmat), torch.from_numpy(plens),
+    pmat, plens = evaluate.pack_strings(paths)
+    prof, valid = evaluate.path_prob_profile(torch.from_numpy(pmat), torch.from_numpy(plens),
                                          ttable.probs[8])
     for i, want in enumerate(ref["path_prob_dist"]):
         got = prof[i][valid[i]].numpy()

@@ -44,7 +44,8 @@ def k1_vs_parent(parent_cu: str) -> None:
     from genomeassembler_dev_tpu_torch.core.encoding import encode_dna
     from genomeassembler_dev_tpu_torch.ops import cuda_build, myers
     from genomeassembler_dev_tpu_torch.ops.edit_distance import batched_levenshtein
-    from genomeassembler_dev_tpu_torch.pipeline.assembler import pack_strings
+    from genomeassembler_dev_tpu_torch.pipeline.evaluate import (
+        COL_MULTIPLE, ROW_MULTIPLE, pack_strings)
     from genomeassembler_dev_tpu_torch.sim.segments import synthetic_segment_store
 
     dev = torch.device("cuda")
@@ -87,7 +88,7 @@ def k1_vs_parent(parent_cu: str) -> None:
                 + f" (plain {want.tolist()[:4]}, other {got['other'].tolist()[:4]})")
     segment = synthetic_segment_store(1234, chip_smoke.VELVET_LEN, 1).seqs[0]
     target = torch.from_numpy(encode_dna(segment)).to(dev)
-    mat, lens = pack_strings([segment], s_multiple=64, l_multiple=128)
+    mat, lens = pack_strings([segment], s_multiple=ROW_MULTIPLE, l_multiple=COL_MULTIPLE)
     shapes = {  # name: (args, mode, calls a timing)
         "slice [512, 2048] x 1000 NW": (chip_smoke.slice_shape_args(dev), "NW", 20),
         "[256, 2048] x 50000 HW": (chip_smoke.hw_shape_args(dev), "HW", 3),
