@@ -3,8 +3,8 @@
 NVIDIA GPU.
 
   [1] the card;
-  [2] builds the three kernels from csrc/ (myers.cu, histogram.cu,
-      prefix_min.cu), all nvcc processes at once;
+  [2] builds the four kernels from csrc/ (myers.cu, histogram.cu,
+      prefix_min.cu, ks.cu), all nvcc processes at once;
   [3] holds the Myers kernel against the plain DP, on the TPU kernel's test
       cases, on queries at the edges of its launch plan (strips, warps,
       bands; alone and mixed in one launch), on queries and targets with
@@ -15,6 +15,14 @@ NVIDIA GPU.
       C++ k-mer counter (k 2 to 9, int64 codes out of range, the parts'
       edges, the count study's four shapes) and times it beside
       torch.bincount;
+  [3d] holds the KS kernel (K4, csrc/ks.cu) against the pooled sort on
+      crafted rows (ties, values equal to the track's, track zeros tying the
+      zero run, all-zero, one-nonzero and NaN rows, kept counts at the
+      capacity, scalar loads, the largest capacity, a row past its
+      capacity), groups of tracks and real breakscore rows at the k 9 and
+      50 kb shapes, within one float32 ulp (bit-equal rows counted); checks
+      that a bound above capacity takes the pooled sort, and times K4 at
+      both shapes beside its byte bound and the pooled sort;
   [4] replays the golden fixtures own_k9_rl12, own_k13_rl16 and own_k15_rl20;
   [5] drives eight own-dBG experiments at the study shape through
       Assembler.run_experiment and checks them against the native engine;
@@ -64,8 +72,9 @@ NVIDIA GPU.
       track and the experiment's own reads; the three figures are drawn
       where matplotlib is installed, and a line says so where it is not;
  [15] a device trace (utils/profiling.py) of one study-shape experiment with
-      its stages annotated, then one K2 and one K3 call: every K1, K2 and K3
-      launch must be a kernel event of its name launched inside its span;
+      its stages annotated, then one K2 and one K3 call: every K1, K2, K3
+      and K4 launch must be a kernel event of its name launched inside its
+      span;
       prints the device busy share of the experiment's window, its top five
       device operations and the trace file;
  [16] the port's headline bench (genomeassembler_dev_tpu_torch/bench.py) at
@@ -155,13 +164,16 @@ OWN_FULL_DIR = os.path.join(HERE, "build", "smoke_own_full")
 OWN_FULL_ITERS = 200  # BASELINE config 3 (studies/STUDY_own_full_r2.md): 200 a row
 OWN_FULL_BATCH = 64
 KERNEL_NAMES = {"myers_levenshtein": "myers_kernel", "kmer_histogram": "histogram_kernel",
-                "prefix_min_levenshtein": "prefix_min_kernel"}  # in the kernels' symbols
+                "prefix_min_levenshtein": "prefix_min_kernel",
+                "ks_sparse": "ks_sparse_kernel"}  # in the kernels' symbols
 KERNELS = {  # name in the record: (csrc name, TPU kernel it replaces)
     "myers_levenshtein": ("myers", "genomeassembler_dev_tpu/ops/pallas/myers_kernel.py:58"),
     "kmer_histogram": ("histogram",
                        "genomeassembler_dev_tpu/ops/pallas/histogram_kernel.py:27"),
     "prefix_min_levenshtein": ("prefix_min",
                                "genomeassembler_dev_tpu/ops/pallas/edit_distance_kernel.py:32"),
+    # K4: no TPU kernel; the JAX package sorts the pooled rows with jnp.sort
+    "ks_sparse": ("ks", "none (genomeassembler_dev_tpu/ops/ks.py sorts with jnp.sort)"),
 }
 RTOL = 2e-5  # float32 scores: the JAX package's float32 tolerance
 # query lengths at the Myers kernel's strip, warp and band edges
@@ -419,6 +431,242 @@ def merge_cases(rng_for) -> dict:
             "duplicate-heavy": [dup, other[0], dup, other[1], dup, other[2], other[3]]}
 
 
+def phase_ks(dev, record: dict) -> None:
+    """[3d] K4 (csrc/ks.cu) against the pooled sort, ops/ks.py's plain
+    version (batched_ks_2samp), on the card: crafted rows (ties inside a
+    row, values equal to track values, track zeros tying the zero run,
+    all-zero, one-nonzero and NaN rows, kept counts at the capacity and at
+    the largest shared capacity, rows past it whose keys live in a global
+    scratch row, dense rows under no bound but N), groups of several tracks,
+    the score groups that run_experiments_batched hands K4 for own1k.k9's
+    first row (12:9, the cell's first 64 segments, in the runner's score
+    groups) and
+    breakscore rows at BASELINE config 1's shape (one 50 kb segment, 150-base
+    reads): every row within one float32 ulp, NaN where NaN, the bit-equal
+    rows counted. A row past its bound's capacity reads NaN, and the wrapper
+    refuses rows it cannot load 16 bytes at a time. The study's runner takes
+    K4 for every KS row (eval.ks_kernel_rows == eval.ks_rows, one launch a
+    group) and gives the KS columns of the pooled sort within one ulp. K4 is
+    timed on the study's groups and at the 50 kb shape by CUDA events over
+    calls and as a CUDA graph, beside its byte bound and the pooled sort in
+    chunks of KS_ROWS rows as evaluate_group ran it before K4."""
+    from genomeassembler_dev_tpu_torch.core.encoding import encode_dna
+    from genomeassembler_dev_tpu_torch.core.querytable import TOTAL, load_default_query_table
+    from genomeassembler_dev_tpu_torch.ops import ks
+    from genomeassembler_dev_tpu_torch.pipeline import evaluate
+    from genomeassembler_dev_tpu_torch.pipeline.assembler import Assembler
+    from genomeassembler_dev_tpu_torch.pipeline.batch_runner import run_experiments_batched
+    from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
+    from genomeassembler_dev_tpu_torch.pipeline.evaluate import KS_ROWS, pack_member
+    from genomeassembler_dev_tpu_torch.score.breakscore import breakscore
+    from genomeassembler_dev_tpu_torch.sim.segments import synthetic_genome
+    from genomeassembler_dev_tpu_torch.utils import profiling
+    from genomeassembler_dev_tpu_torch.utils.timers import StageTimer
+
+    rec = record["ks_sparse"]
+    rec.update(rows=0, bit_equal_rows=0, max_ulp=0)
+    torch.cuda.synchronize()
+    ks.ks_2samp_sparse.launches = 0
+
+    def pooled(x, y):
+        """The pooled sort of x's rows in chunks of KS_ROWS, as evaluate_group
+        ran it before K4: row b against y[b // (B // G)]."""
+        y_rows = y.repeat_interleave(x.shape[0] // y.shape[0], dim=0)
+        return torch.cat([ks.batched_ks_2samp(x[lo : lo + KS_ROWS], y_rows[lo : lo + KS_ROWS])
+                          for lo in range(0, x.shape[0], KS_ROWS)])
+
+    def ulps(got: torch.Tensor, want: torch.Tensor, what: str) -> np.ndarray:
+        """Each row's distance in float32 ulps (the statistics are >= 0),
+        after checking that NaN rows are NaN on both sides."""
+        g, w = got.cpu().numpy(), want.cpu().numpy()
+        nan = np.isnan(w)
+        check(np.array_equal(np.isnan(g), nan), f"{what}: NaN rows differ")
+        d = np.zeros(len(w), np.int64)
+        d[~nan] = np.abs(g[~nan].view(np.int32).astype(np.int64)
+                         - w[~nan].view(np.int32).astype(np.int64))
+        return d
+
+    def compare(what, x, y, bound):
+        before = ks.ks_2samp_sparse.launches
+        got = keeps_device("K4", lambda: ks.ks_2samp_sparse(x, y, bound))
+        check(ks.ks_2samp_sparse.launches == before + 1, f"{what}: K4 was not launched")
+        want = pooled(x, y)
+        d = ulps(got, want, what)
+        check(int(d.max(initial=0)) <= 1, f"{what}: K4 {int(d.max())} ulps from the pooled sort")
+        equal = int((d == 0).sum())
+        rec["rows"] += len(d)
+        rec["bit_equal_rows"] += equal
+        rec["max_ulp"] = max(rec["max_ulp"], int(d.max(initial=0)))
+        print(f"[3d] {what}: {len(d)} rows ({int(torch.isnan(want).sum())} NaN), {equal} "
+              f"bit-equal to the pooled sort, the rest within {int(d.max(initial=0))} ulp")
+        return got
+
+    # -- crafted rows at the table's width, tracks of the k 9 segments' length
+    rng = np.random.default_rng(20)
+    N, M = TOTAL, 993
+    tracks = (rng.random((8, M)) * 1e-3 + 2.0**-22).astype(np.float32)
+    tracks[1, 100:107] = 0.0  # windows holding an N
+    tracks[1, 200:203] = -0.0
+
+    def sparse_rows(B, n, values, seed):
+        r = np.random.default_rng(seed)
+        x = np.zeros((B, N), np.float32)
+        for row in x:
+            row[r.choice(N, n, replace=False)] = r.choice(values, n)
+        return x
+
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    bound = 1024  # the k 9 study's padded distinct reads
+    cap = ks.capacity(bound, N)
+    smooth = rng.random(5000).astype(np.float32) * 2e-3
+    ties = np.float32([1 / 3, 1 / 7, 0.25, 1e-3])
+    crafted = {
+        "ties inside rows": (sparse_rows(4, 900, np.concatenate([ties, smooth[:20]]), 1),
+                             tracks[:1]),
+        "values equal to track values": (sparse_rows(4, 900, tracks[0], 2), tracks[:1]),
+        "track zeros tying the zero run": (sparse_rows(4, 900, tracks[1], 3), tracks[1:2]),
+        "all-zero rows": (np.zeros((2, N), np.float32), tracks[:2]),
+        "one-nonzero rows": (sparse_rows(4, 1, np.float32([1.0, 1e-3, tracks[0, 5], 1e-9]), 4),
+                             tracks[:1]),
+        "kept counts at the capacity": (sparse_rows(4, cap, smooth, 5), tracks[:2]),
+        "groups of 8 tracks, 16 rows each": (sparse_rows(128, 700, smooth, 6), tracks),
+    }
+    nan_rows = sparse_rows(6, 500, smooth, 7)
+    nan_rows[1, :] = np.nan
+    nan_rows[3, N - 1] = np.nan
+    nan_rows[4, N // 2] = np.nan
+    crafted["NaN rows"] = (nan_rows, tracks[:2])
+    for what, (x, y) in crafted.items():
+        compare(what, on(x), on(y), bound)
+    # the largest capacity in shared memory, and keys past it in global scratch
+    compare("kept counts at the largest shared capacity",
+            on(sparse_rows(2, ks.SHARED_CAPACITY, smooth, 9)), on(tracks[:1]),
+            ks.SHARED_CAPACITY)
+    compare("40,000 kept values in a global scratch row",
+            on(sparse_rows(2, 40000, smooth, 12)), on(tracks[:2]), 40000)
+    dense = rng.random((2, N)).astype(np.float32) * 2e-3 + 2.0**-30
+    dense[1, :7] = 0.0
+    compare("dense rows under the bound N", on(dense), on(tracks[:1]), N)
+    # a row past its bound's capacity reads NaN (the caller broke its bound)
+    past = sparse_rows(2, cap + 1, smooth, 10)
+    past[1] = sparse_rows(1, cap, smooth, 11)[0]
+    got = ks.ks_2samp_sparse(on(past), on(tracks[:1]), bound)
+    check(bool(torch.isnan(got[0])) and int(ulps(got[1:], pooled(on(past[1:]), on(tracks[:1])),
+                                                 "at the capacity").max()) <= 1,
+          "a row past its capacity reads NaN, the row at it its statistic")
+    print(f"[3d] a row of {cap + 1} nonzero values under a bound of {bound} (capacity {cap}) "
+          f"reads NaN; its neighbour at the capacity its statistic")
+    # rows that 16-byte loads cannot take are refused, not read
+    x = on(sparse_rows(2, 900, smooth, 8))
+    flat = torch.zeros(2 * N + 1, dtype=torch.float32, device=dev)
+    for what, rows in (("N 69,903", x[:, 1:].contiguous()),
+                       ("rows 4 bytes off a 16-byte boundary", flat[1:].view(2, N))):
+        try:
+            ks.ks_2samp_sparse(rows, on(tracks[:1]), bound)
+            check(False, f"K4 took {what}")
+        except ValueError:
+            print(f"[3d] {what}: refused")
+
+    # -- own1k.k9's score groups, as the study's runner hands them to K4 -----
+    study = ExperimentConfig(seq_len=1000, read_len=12, dbg_kmer=9, coverage_target=40.0,
+                             kmer=8, seed=1234, n_orderings=10000)
+    segs = [synthetic_genome([1234, i], 1000) for i in range(64)]  # the cell's set, batch 1
+    table = load_default_query_table(dev)
+    run_experiments_batched(study, segs[:8], dev, table)  # warm
+    groups = []  # every group's (rows, tracks, bound): ~10 GB of rows
+
+    def captured_k4(x, y, b):
+        groups.append((x, y, b))
+        return ks.ks_2samp_sparse(x, y, b)
+
+    def study_run(ks_of_group):
+        saved, evaluate.ks_2samp_sparse = evaluate.ks_2samp_sparse, ks_of_group
+        try:
+            profiling.collect()
+            launches = ks.ks_2samp_sparse.launches
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+                results = run_experiments_batched(study, segs, dev, table)
+            return results, profiling.collect().counters, ks.ks_2samp_sparse.launches - launches
+        finally:
+            evaluate.ks_2samp_sparse = saved
+
+    res_k, count_k, launched_k = study_run(captured_k4)
+    res_p, count_p, launched_p = study_run(lambda x, y, b: pooled(x, y))
+    members = [y.shape[0] for _, y, _ in groups]
+    check(launched_k == len(groups) > 0 and sum(members) == len(segs) and launched_p == 0
+          and count_k["eval.ks_kernel_rows"] == count_k["eval.ks_rows"] > 0,
+          f"study runner: K4 launches {launched_k} for groups of {members}, counters {count_k}")
+    worst = 0
+    for col in ("stat_test_KS_true", "stat_test_KS_random"):
+        for rk, rp in zip(res_k, res_p):
+            d = ulps(torch.from_numpy(np.asarray(rk.columns[col], np.float32)),
+                     torch.from_numpy(np.asarray(rp.columns[col], np.float32)), col)
+            worst = max(worst, int(d.max(initial=0)))
+    check(worst <= 1, f"study runner KS columns: K4 {worst} ulps from the pooled sort")
+    print(f"[3d] study runner, 12:9 x {len(segs)} segments: {launched_k} K4 launches, one a "
+          f"score group of {members} members, for "
+          f"{count_k['eval.ks_rows']} KS rows (eval.ks_kernel_rows "
+          f"{count_k['eval.ks_kernel_rows']}); its KS columns within {worst} ulp of the "
+          f"runner with the pooled sort")
+    for i, (x, y, b) in enumerate(groups):
+        nonzero = int((x.nan_to_num(0.0) != 0).sum(dim=1).max())
+        check(nonzero <= b, f"study group {i}: a row holds {nonzero} nonzero entries over {b}")
+        compare(f"study group {i}, {y.shape[0]} members x {x.shape[0] // y.shape[0]} rows "
+                f"(bound {b}, most nonzero {nonzero})", x, y, b)
+
+    # -- breakscore rows at BASELINE config 1's shape -------------------------
+    c = CONFIG1
+    k50 = ExperimentConfig(seq_len=c["seq_len"], read_len=c["read_len"], dbg_kmer=c["dbg_kmer"],
+                           coverage_target=float(c["coverage"]), kmer=8, seed=1234,
+                           n_orderings=c["n_orderings"])
+    seg50 = synthetic_genome([1234, 0], c["seq_len"])
+    asm = Assembler(k50, dev)
+    rs = asm.simulate(torch.from_numpy(encode_dna(seg50)).to(dev), StageTimer(dev, False))
+    # the truth as the one real row, every read matched, padded as the runner pads
+    pmat, plens, rc, rn, rv = pack_member([seg50], rs.codes, rs.valid, k50.read_chunk)
+    x50 = breakscore(torch.from_numpy(pmat).to(dev), torch.from_numpy(plens).to(dev), rc, rn,
+                     rv, asm.table.combined, break_kmer=k50.kmer).path_freq
+    y50, b50 = rs.track[None].contiguous(), rc.shape[0]
+    compare(f"50 kb breakscore rows ({x50.shape[0]} rows, one real; bound {b50}, the real "
+            f"row's nonzero entries {int((x50[0] != 0).sum())})", x50, y50, b50)
+
+    # -- time on the study's groups and at the 50 kb shape --------------------
+    def row_bytes(x):
+        """The bytes K4 must read of x: a real row all of it, a NaN row (the
+        padding) its entries up to its first NaN."""
+        nan = torch.isnan(x)
+        return 4 * int(torch.where(nan.any(dim=1), nan.float().argmax(dim=1) + 1,
+                                   x.shape[1]).sum())
+
+    def timed(calls, n_exp):
+        """ms an experiment of `calls`, each (x, y, bound), and their byte bound."""
+        t = {"events_ms": sum(cuda_ms(lambda: ks.ks_2samp_sparse(x, y, b), 20)
+                              for x, y, b in calls) / n_exp,
+             "graph_ms": sum(1e-3 * graph_us(lambda: ks.ks_2samp_sparse(x, y, b), 20)
+                             for x, y, b in calls) / n_exp,
+             "pooled_ms": sum(cuda_ms(lambda: pooled(x, y), 3) for x, y, _ in calls) / n_exp,
+             "bound_ms": sum(row_bytes(x) + 4 * (y.numel() + x.shape[0])
+                             for x, y, _ in calls) / HBM_BYTES_PER_MS / n_exp,
+             "rows": sum(x.shape[0] for x, _, _ in calls) / n_exp,
+             "real_rows": sum(int((~torch.isnan(x).any(dim=1)).sum())
+                              for x, _, _ in calls) / n_exp}
+        t["bound_share"] = t["bound_ms"] / t["graph_ms"]
+        return t
+
+    timings = {"own1k.k9 12:9 groups": timed(groups, len(segs)),
+               "own50k.config1": timed([(x50, y50, b50)], 1)}
+    for shape, t in timings.items():
+        print(f"[3d] {shape}, an experiment: {t['rows']:.1f} rows ({t['real_rows']:.1f} real); "
+              f"K4 {t['events_ms']:.4f} ms (events), {t['graph_ms']:.4f} ms as a CUDA graph "
+              f"(the tracks' sort included); the pooled sort in chunks of {KS_ROWS} "
+              f"{t['pooled_ms']:.3f} ms; bound {t['bound_ms']:.4f} ms (bytes), "
+              f"{100 * t['bound_share']:.1f}%")
+    k9 = timings["own1k.k9 12:9 groups"]
+    rec.update(timings=timings, ms=k9["graph_ms"], bound_ms=k9["bound_ms"], bound_by="bytes",
+               plain_ms=k9["pooled_ms"], library_ms=None,
+               launches=rec.get("launches", 0) + ks.ks_2samp_sparse.launches)
+
+
 def phase_model(dev) -> dict:
     """[12] `cli fit-model` at full width (k 8, hidden 256, batch 4096, 500
     steps) in process on the card; the trained forward on the card against
@@ -551,7 +799,7 @@ def phase_parallel(dev, record: dict, model: dict) -> None:
         make_ring_levenshtein, make_ring_levenshtein_myers)
     from genomeassembler_dev_tpu_torch.ops.histogram import (
         count_kmers_batched, count_kmers_batched_plain)
-    from genomeassembler_dev_tpu_torch.ops.ks import batched_ks_2samp
+    from genomeassembler_dev_tpu_torch.ops.ks import batched_ks_2samp, ks_2samp_sparse
     from genomeassembler_dev_tpu_torch.ops.prefix_min import batched_levenshtein_prefix_min
     from genomeassembler_dev_tpu_torch.ops.windows import kmer_window_codes
     from genomeassembler_dev_tpu_torch.parallel import multihost, sharding
@@ -608,12 +856,13 @@ def phase_parallel(dev, record: dict, model: dict) -> None:
     myers.batched_levenshtein_myers.launches = 0
     count_kmers_batched.launches = 0
     batched_levenshtein_prefix_min.launches = 0
+    ks_2samp_sparse.launches = 0
     t_path = time.perf_counter()
     sim_step = sharding.make_sim_count_step(mesh, 12, n_draws, 8)
     counts = sim_step(genomes, seeds, probs8)
     bs_step = sharding.make_breakscore_step(mesh)
     bs = bs_step(pm, pl, rc, rn, rv, table.combined)
-    ks = sharding.make_ks_step(mesh)(bs["path_freq"], tracks)
+    ks = sharding.make_ks_step(mesh)(bs["path_freq"], tracks, rc.shape[1])
     lev = sharding.make_lev_step(mesh)(pm, pl, gm)
     local = sharding.shard_params(mesh, bm.load_params(model["path"], dev))
     train = sharding.make_sharded_train_step(mesh, bm.adam(local, 3e-3))
@@ -640,14 +889,16 @@ def phase_parallel(dev, record: dict, model: dict) -> None:
     torch.cuda.synchronize()
     path_s = time.perf_counter() - t_path
     launches = {"myers_levenshtein": myers.batched_levenshtein_myers.launches,
-                "kmer_histogram": count_kmers_batched.launches}
+                "kmer_histogram": count_kmers_batched.launches,
+                "ks_sparse": ks_2samp_sparse.launches}
     check(batched_levenshtein_prefix_min.launches == 0, "prefix-min launched by the layer")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched by the parallel layer")
         record[name]["launches"] += n
         record[name]["parallel_launches"] = n
     print(f"[13] the layer's paths in {path_s:.3f} s; launches: Myers "
-          f"{launches['myers_levenshtein']}, histogram {launches['kmer_histogram']}")
+          f"{launches['myers_levenshtein']}, histogram {launches['kmer_histogram']}, KS "
+          f"{launches['ks_sparse']}")
 
     # -- each against its unsharded counterpart ------------------------------
     rs = sharding.simulate_read_shard(genomes, seeds, probs8, 12, n_draws, 0)
@@ -672,7 +923,8 @@ def phase_parallel(dev, record: dict, model: dict) -> None:
     lev_want = torch.stack([batched_levenshtein(a, b, g) for a, b, g in zip(pm, pl, gm)])
     check(torch.equal(lev, lev_want), "Levenshtein step != plain DP")
     step_ms = {"breakscore": cuda_ms(lambda: bs_step(pm, pl, rc, rn, rv, table.combined), 5),
-               "ks": cuda_ms(lambda: sharding.make_ks_step(mesh)(bs["path_freq"], tracks), 5),
+               "ks": cuda_ms(lambda: sharding.make_ks_step(mesh)(bs["path_freq"], tracks,
+                                                                 rc.shape[1]), 5),
                "lev": cuda_ms(lambda: sharding.make_lev_step(mesh)(pm, pl, gm), 5)}
     print(f"[13] breakscore, KS and Levenshtein steps on one group {tuple(pm.shape)} with "
           f"{rc.shape[1]} reads: equal to the unsharded calls (breaks and distances exact, "
@@ -930,12 +1182,13 @@ def phase_plots(dev, record: dict) -> None:
 def phase_trace(dev, record: dict, k2_args, k3_args) -> None:
     """[15] a device trace (utils/profiling.py) of one study-shape experiment
     with an annotation around each stage, then one K2 and one K3 call.
-    Every launch of K1, K2 and K3 must be a kernel event of that name whose
-    launch lies inside its annotation. Prints the device busy share of the
+    Every launch of K1, K2, K3 and K4 must be a kernel event of that name
+    whose launch lies inside its annotation (K1's and K4's: evaluate). Prints the device busy share of the
     experiment's window, its top five device operations and the trace."""
     from genomeassembler_dev_tpu_torch.core.encoding import encode_dna
     from genomeassembler_dev_tpu_torch.ops import myers
     from genomeassembler_dev_tpu_torch.ops.histogram import count_kmers_batched
+    from genomeassembler_dev_tpu_torch.ops.ks import ks_2samp_sparse
     from genomeassembler_dev_tpu_torch.ops.prefix_min import batched_levenshtein_prefix_min
     from genomeassembler_dev_tpu_torch.pipeline.assembler import Assembler
     from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
@@ -951,7 +1204,8 @@ def phase_trace(dev, record: dict, k2_args, k3_args) -> None:
     want = asm.run_experiment(segment).columns  # warm, untraced
     counters = {"myers_levenshtein": myers.batched_levenshtein_myers,
                 "kmer_histogram": count_kmers_batched,
-                "prefix_min_levenshtein": batched_levenshtein_prefix_min}
+                "prefix_min_levenshtein": batched_levenshtein_prefix_min,
+                "ks_sparse": ks_2samp_sparse}
     torch.cuda.synchronize()
     for fn in counters.values():
         fn.launches = 0
@@ -987,7 +1241,7 @@ def phase_trace(dev, record: dict, k2_args, k3_args) -> None:
     found = {}
     for name, symbol in KERNEL_NAMES.items():
         span = spans[{"myers_levenshtein": "evaluate", "kmer_histogram": "K2",
-                      "prefix_min_levenshtein": "K3"}[name]]
+                      "prefix_min_levenshtein": "K3", "ks_sparse": "evaluate"}[name]]
         mine = [e for e in device if e.get("cat") == "kernel" and symbol in e["name"]]
         inside = [e for e in mine if span[0] <= launch_of.get(
             e["args"].get("correlation"), {"ts": -1})["ts"] <= span[1]]
@@ -1144,6 +1398,7 @@ def phase_config1(dev, record: dict) -> None:
     from genomeassembler_dev_tpu_torch.merge import native
     from genomeassembler_dev_tpu_torch.ops import myers
     from genomeassembler_dev_tpu_torch.ops.edit_distance import batched_levenshtein
+    from genomeassembler_dev_tpu_torch.ops.ks import ks_2samp_sparse
     from genomeassembler_dev_tpu_torch.ops.prefix_min import batched_levenshtein_prefix_min
     from genomeassembler_dev_tpu_torch.ops.windows import kmer_window_codes
     from genomeassembler_dev_tpu_torch.pipeline import results as res_io
@@ -1165,6 +1420,7 @@ def phase_config1(dev, record: dict) -> None:
     torch.cuda.reset_peak_memory_stats()
     myers.batched_levenshtein_myers.launches = 0
     batched_levenshtein_prefix_min.launches = 0
+    ks_2samp_sparse.launches = 0
     before = torch.cuda.current_device()
     t0 = time.perf_counter()
     cli.main(argv)
@@ -1174,8 +1430,11 @@ def phase_config1(dev, record: dict) -> None:
     k1 = myers.batched_levenshtein_myers.launches
     check(k1 >= 1, "config 1: the Myers kernel was not launched")
     check(batched_levenshtein_prefix_min.launches == 0, "config 1: prefix-min launched")
+    check(ks_2samp_sparse.launches == 1, f"config 1: KS kernel launches "
+          f"{ks_2samp_sparse.launches}, not one")
     check(torch.cuda.current_device() == before, "config 1 moved the current device")
     record["myers_levenshtein"]["launches"] += k1
+    record["ks_sparse"]["launches"] += 1
 
     cfg = ExperimentConfig(seq_len=c["seq_len"], read_len=c["read_len"],
                            dbg_kmer=c["dbg_kmer"], kmer=8, coverage_target=float(c["coverage"]),
@@ -1285,6 +1544,7 @@ def phase_own_full(dev, record: dict) -> None:
     from genomeassembler_dev_tpu_torch import cli
     from genomeassembler_dev_tpu_torch.core.querytable import load_default_query_table
     from genomeassembler_dev_tpu_torch.ops import myers
+    from genomeassembler_dev_tpu_torch.ops.ks import ks_2samp_sparse
     from genomeassembler_dev_tpu_torch.ops.prefix_min import batched_levenshtein_prefix_min
     from genomeassembler_dev_tpu_torch.pipeline import results as res_io
     from genomeassembler_dev_tpu_torch.pipeline.assembler import Assembler
@@ -1299,6 +1559,7 @@ def phase_own_full(dev, record: dict) -> None:
     torch.cuda.reset_peak_memory_stats()
     myers.batched_levenshtein_myers.launches = 0
     batched_levenshtein_prefix_min.launches = 0
+    ks_2samp_sparse.launches = 0
     t0 = time.time()
     cli.main(["study-own", "--synthetic", "--total-iters", str(iters), "--seq-len", "1000",
               "--coverage", "40", "--n-orderings", "10000", "--batched", "--seg-batch",
@@ -1312,10 +1573,14 @@ def phase_own_full(dev, record: dict) -> None:
     k1 = myers.batched_levenshtein_myers.launches
     check(k1 == runs, f"own study: Myers launches {k1}, not one for each of {runs} runs")
     check(batched_levenshtein_prefix_min.launches == 0, "own study: prefix-min launched")
+    k4 = ks_2samp_sparse.launches  # one a score group
+    check(0 < k4 <= runs, f"own study: KS kernel launches {k4} for {runs} runs")
     record["myers_levenshtein"]["launches"] += k1
+    record["ks_sparse"]["launches"] += k4
     print(f"[18] study-own --batched --seg-batch {batch}: {n_exp} experiments in {wall:.3f} s "
           f"({n_exp / wall:.3f} experiments/s), {runs} runs with the fillers, Myers launches "
-          f"{k1}; peak device memory {peak / 2**30:.3f} GiB ({peak} bytes)")
+          f"{k1}, KS kernel launches {k4}; peak device memory {peak / 2**30:.3f} GiB "
+          f"({peak} bytes)")
 
     base = ExperimentConfig(seq_len=1000, read_len=12, dbg_kmer=9, kmer=8, coverage_target=40.0,
                             seed=1234, n_orderings=10000)
@@ -1598,6 +1863,9 @@ def main() -> int:
               f"{c['host_loop_us']:.2f} us, torch.bincount {c['bincount_host_loop_us']:.2f} us; "
               f"bound {c['bound_us']:.3f} us (bytes)")
     rec["count_study"] = count_us
+
+    # -- phase 3d: the KS kernel vs the pooled sort ---------------------------
+    phase_ks(dev, record)
 
     # -- phase 4: the golden fixtures -----------------------------------------
     for path in FIXTURES:

@@ -29,6 +29,9 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# every kernel of csrc/, by source name: `build(*KERNELS)` compiles them all
+KERNELS = ("myers", "histogram", "prefix_min", "ks")
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 

@@ -29,7 +29,7 @@ from genomeassembler_dev_tpu_torch.core.querytable import TOTAL
 from genomeassembler_dev_tpu_torch.models import breakage_model as bm
 from genomeassembler_dev_tpu_torch.ops.edit_distance import batched_levenshtein_auto
 from genomeassembler_dev_tpu_torch.ops.histogram import count_kmers_batched
-from genomeassembler_dev_tpu_torch.ops.ks import batched_ks_2samp
+from genomeassembler_dev_tpu_torch.ops.ks import batched_ks_2samp, ks_2samp_sparse
 from genomeassembler_dev_tpu_torch.ops.windows import kmer_window_codes
 from genomeassembler_dev_tpu_torch.parallel.mesh import (
     all_reduce, axis_group, axis_index, axis_size, block, gather)
@@ -125,13 +125,20 @@ def make_breakscore_step(mesh: DeviceMesh, break_kmer: int = 8):
 
 def make_ks_step(mesh: DeviceMesh):
     """Sharded per-solution KS statistic: step(path_freq [B,S,T], tracks
-    [B,W]) -> this rank's [B/seg, S] float32; only `seg` parallelism
-    applies (the KS pooled sort is per solution)."""
+    [B,W], nonzero_bound) -> this rank's [B/seg, S] float32; only `seg`
+    parallelism applies (the KS is per solution). nonzero_bound is the most
+    entries of a row that are not 0.0: the breakscore step's padded read
+    count, or None for any. CUDA rows are one K4 launch for the rank's
+    block (ops/ks.py::ks_2samp_sparse), CPU rows the pooled sort a segment."""
 
-    def step(path_freq, tracks):
+    def step(path_freq, tracks, nonzero_bound=None):
         blk = block(path_freq.shape[0], mesh, "seg")
-        return torch.stack([batched_ks_2samp(pf, tr)
-                            for pf, tr in zip(path_freq[blk], tracks[blk])])
+        pf, tr = path_freq[blk], tracks[blk]
+        if pf.device.type == "cuda":
+            bound = pf.shape[2] if nonzero_bound is None else nonzero_bound
+            return ks_2samp_sparse(pf.reshape(-1, pf.shape[2]), tr.contiguous(),
+                                   bound).view(pf.shape[:2])
+        return torch.stack([batched_ks_2samp(f, t) for f, t in zip(pf, tr)])
 
     return step
 

@@ -13,7 +13,8 @@ import torch
 from genomeassembler_dev_tpu_torch.core.encoding import INVALID, encode_dna
 from genomeassembler_dev_tpu_torch.core.querytable import TOTAL, QueryTable
 from genomeassembler_dev_tpu_torch.ops.edit_distance import batched_levenshtein_auto
-from genomeassembler_dev_tpu_torch.ops.ks import batched_ks_2samp, batched_ks_2samp_masked
+from genomeassembler_dev_tpu_torch.ops.ks import (
+    batched_ks_2samp, batched_ks_2samp_masked, ks_2samp_sparse)
 from genomeassembler_dev_tpu_torch.ops.windows import kmer_window_codes
 from genomeassembler_dev_tpu_torch.score.breakscore import BreakScores, breakscore, dot_f32
 from genomeassembler_dev_tpu_torch.sim.reads import dedup_reads
@@ -144,8 +145,10 @@ def evaluate_group(members: list[tuple], genome: torch.Tensor, track: torch.Tens
     does, of one row count S (so each one's score dots take its own call's
     shape, score/breakscore.py::dot_f32), against segments genome[segs]
     [G, L] and tracks track[segs]. `score_rows` is breakscore or the mesh's
-    read-sharded step. KS takes KS_ROWS rows at a time, of path_freq or
-    (profile_ks, the velvet path) of the masked octamer profile;
+    read-sharded step. KS of path_freq is one K4 launch for the group on
+    CUDA (ops/ks.py::ks_2samp_sparse); otherwise KS takes KS_ROWS rows at a
+    time, of path_freq on the CPU or (profile_ks, the velvet path) of the
+    masked octamer profile.
     Levenshtein is one Myers kernel call a member, in `mode`."""
     G = len(members)
     segs = list(range(G)) if segs is None else segs
@@ -179,19 +182,28 @@ def evaluate_group(members: list[tuple], genome: torch.Tensor, track: torch.Tens
     with annotate("eval.random"):
         rand, rand_nb, rand_nl = random_scores(bs, pl, uniform)
     with annotate("eval.ks"):
-        # each row against its own segment's track
-        row_seg = torch.tensor(segs, device=dev).repeat_interleave(S)
-        rows_pm, rows_pl = pm.view(G * S, L), pl.view(G * S)
         path_freq = bs.path_freq.view(G * S, TOTAL)
-        parts = []
-        for lo in range(0, G * S, KS_ROWS):
-            rows, y = slice(lo, lo + KS_ROWS), track[row_seg[lo : lo + KS_ROWS]]
-            if profile_ks:
-                prof, valid = path_prob_profile(rows_pm[rows], rows_pl[rows], table.probs[8])
-                parts.append(batched_ks_2samp_masked(prof, valid, y))
-            else:
-                parts.append(batched_ks_2samp(path_freq[rows], y))
-        ks = torch.cat(parts).view(G, S)
+        on_kernel = not profile_ks and dev.type == "cuda"
+        if tracing():
+            count("eval.ks_rows", G * S)
+            count("eval.ks_kernel_rows", G * S if on_kernel else 0)
+        if on_kernel:
+            # one launch for the group, member gi against track[segs[gi]]; a
+            # row is nonzero only at its distinct reads' break sites
+            ks = ks_2samp_sparse(path_freq, track[segs], rc.shape[1]).view(G, S)
+        else:
+            # each row against its own segment's track
+            row_seg = torch.tensor(segs, device=dev).repeat_interleave(S)
+            rows_pm, rows_pl = pm.view(G * S, L), pl.view(G * S)
+            parts = []
+            for lo in range(0, G * S, KS_ROWS):
+                rows, y = slice(lo, lo + KS_ROWS), track[row_seg[lo : lo + KS_ROWS]]
+                if profile_ks:
+                    prof, valid = path_prob_profile(rows_pm[rows], rows_pl[rows], table.probs[8])
+                    parts.append(batched_ks_2samp_masked(prof, valid, y))
+                else:
+                    parts.append(batched_ks_2samp(path_freq[rows], y))
+            ks = torch.cat(parts).view(G, S)
     with annotate("eval.levenshtein"):
         lev = torch.stack([batched_levenshtein_auto(pm[gi], pl[gi], genome[b], mode=mode)
                            for gi, b in enumerate(segs)])

@@ -3,6 +3,9 @@ k-mer histograms and Levenshtein, on identical numpy-made inputs. Integer output
 exactly; float outputs within rtol 2e-5 (the JAX float32 tolerance)."""
 
 import functools
+import glob
+import os
+import shutil
 
 import numpy as np
 import pytest
@@ -10,6 +13,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from genomeassembler_dev_tpu.core.encoding import encode_dna  # noqa: E402
@@ -29,6 +33,7 @@ from genomeassembler_dev_tpu.ops.pallas.myers_kernel import (  # noqa: E402
     batched_levenshtein_myers as j_myers)
 from genomeassembler_dev_tpu.score.breakscore import breakscore as j_breakscore  # noqa: E402
 from genomeassembler_dev_tpu.spec import reference_semantics as spec  # noqa: E402
+from genomeassembler_dev_tpu_torch.ops import cuda_build  # noqa: E402
 from genomeassembler_dev_tpu_torch.ops import histogram as thist  # noqa: E402
 from genomeassembler_dev_tpu_torch.ops import ks as tks  # noqa: E402
 from genomeassembler_dev_tpu_torch.ops import windows as twin  # noqa: E402
@@ -40,7 +45,9 @@ from genomeassembler_dev_tpu_torch.ops.myers import (  # noqa: E402
 from genomeassembler_dev_tpu_torch.ops import prefix_min as tpm  # noqa: E402
 from genomeassembler_dev_tpu_torch.ops.prefix_min import (  # noqa: E402
     batched_levenshtein_prefix_min)
+from genomeassembler_dev_tpu_torch.pipeline import evaluate  # noqa: E402
 from genomeassembler_dev_tpu_torch.score.breakscore import breakscore as t_breakscore  # noqa: E402
+from genomeassembler_dev_tpu_torch.utils import profiling  # noqa: E402
 
 RTOL = 2e-5
 
@@ -174,6 +181,236 @@ class TestKS:
                                         torch.from_numpy(y)).numpy()
         assert np.isnan(t[4])
         np.testing.assert_allclose(t, j, rtol=RTOL)
+
+
+def sparse_ks_model(x, y, wx, wy):
+    """numpy model of csrc/ks.cu for one row x [N] against its track y [M]:
+    the values that are not 0.0 kept and sorted, the zeros one run, and the
+    gap |#{x <= v} wx - #{y <= v} wy| in float64 at every run end of the kept
+    values, of the track and of the zeros, finite values only."""
+    if np.isnan(x).any():
+        return np.float32(np.nan)
+    kept, ys = np.sort(x[x != 0]), np.sort(y)
+    n_zero, K = x.size - kept.size, kept.size
+    best = 0.0
+    for i, v in enumerate(kept):
+        if (i + 1 < K and kept[i + 1] == v) or not np.isfinite(v):
+            continue
+        cx = i + 1 + (n_zero if v > 0 else 0)
+        best = max(best, abs(cx * wx - np.searchsorted(ys, v, side="right") * wy))
+    for j, v in enumerate(ys):
+        if (j + 1 < ys.size and ys[j + 1] == v) or not np.isfinite(v):
+            continue
+        cx = np.searchsorted(kept, v, side="right") + (n_zero if v >= 0 else 0)
+        best = max(best, abs(cx * wx - (j + 1) * wy))
+    if n_zero:
+        cx = np.searchsorted(kept, 0.0, side="right") + n_zero
+        best = max(best, abs(cx * wx - np.searchsorted(ys, 0.0, side="right") * wy))
+    return np.float32(best)
+
+
+def sparse_ks_case(name):
+    """(x [B, N], y [G, M]) float32: the shapes of one crafted K4 case."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    N, M = 2000, 97
+    y = rng.random((2, M)).astype(np.float32) * 2e-3
+    x = np.zeros((4, N), np.float32)
+    sites = lambda n: rng.choice(N, n, replace=False)  # noqa: E731
+    for row in x:
+        row[sites(40)] = rng.random(40).astype(np.float32) * 2e-3
+    if name == "ties in x":
+        x[:, sites(300)] = np.float32(1 / 3)
+        x[1, sites(50)] = np.float32(0.25)
+    elif name == "x equal to track":
+        x[0, :97] = y[0]
+        x[2, sites(30)] = y[1, :30]
+        x[3, sites(97)] = y[1]
+    elif name == "track zeros tie the zero run":
+        y[:, :9] = 0.0  # windows holding a non-ACGT base
+        y[1, 9:12] = -0.0
+        x[1, :5] = -0.0
+    elif name == "all zeros":
+        x[:] = 0.0
+        y[1, :3] = 0.0
+    elif name == "one nonzero":
+        x[:] = 0.0
+        x[:, 17] = [1.0, 1e-3, y[0, 5], 1e-9]
+    elif name == "nan rows":
+        x[1, :] = np.nan
+        x[3, 1999] = np.nan
+    elif name == "dense, negative and infinite":
+        x[0] = rng.random(N).astype(np.float32) - 0.5
+        x[1, :10] = [np.inf, -np.inf, -1.0, -1.0, 5.0, 5.0, np.inf, -0.5, 0.0, 0.0]
+        y[1, :4] = [np.inf, -np.inf, -1.0, 5.0]
+    elif name == "kept count at the capacity":
+        x[:] = 0.0
+        cap = tks.capacity(64, N)
+        for row in x:
+            row[sites(cap)] = rng.random(cap).astype(np.float32)
+    return x, y
+
+
+SPARSE_KS_CASES = ["random", "ties in x", "x equal to track", "track zeros tie the zero run",
+                   "all zeros", "one nonzero", "nan rows", "dense, negative and infinite",
+                   "kept count at the capacity"]
+
+
+class TestKSSparse:
+    """K4 (csrc/ks.cu) cannot run here: its arithmetic (the numpy model
+    above) is held against the pooled sort, which the CPU path runs, and its
+    capacity, its weights and its wrapper's checks are tested alone."""
+
+    @pytest.mark.parametrize("case", SPARSE_KS_CASES)
+    def test_model_equals_pooled_sort(self, case):
+        x, y = sparse_ks_case(case)
+        B, G = x.shape[0], y.shape[0]
+        want = tks.batched_ks_2samp(torch.from_numpy(x),
+                                    torch.from_numpy(y).repeat_interleave(B // G, dim=0))
+        wx, wy = tks.weights(x.shape[1], y.shape[1])
+        got = np.array([sparse_ks_model(row, y[b // (B // G)], wx, wy)
+                        for b, row in enumerate(x)])
+        assert got.tobytes() == want.numpy().tobytes()  # bit for bit, NaN where NaN
+        jax_ks = np.asarray(jax.vmap(jks.batched_ks_2samp)(
+            jnp.asarray(x.reshape(G, B // G, -1)), jnp.asarray(y))).reshape(B)
+        np.testing.assert_allclose(got, jax_ks, rtol=RTOL)
+
+    @pytest.mark.parametrize("case", ["random", "nan rows", "track zeros tie the zero run"])
+    def test_cpu_calls_take_the_pooled_sort(self, case):
+        """CPU rows keep the pooled sort, in its shared [M] and row [B, M]
+        forms; K4's wrapper refuses them and launches nothing."""
+        x, y = (torch.from_numpy(a) for a in sparse_ks_case(case))
+        want = tks.batched_ks_2samp(x, y.repeat_interleave(2, dim=0))
+        one = tks.batched_ks_2samp(x[:2], y[0])
+        assert one.numpy().tobytes() == want[:2].numpy().tobytes()
+        tks.ks_2samp_sparse.launches = 0
+        with pytest.raises(ValueError, match="CUDA"):
+            tks.ks_2samp_sparse(x, y, 64)
+        assert tks.ks_2samp_sparse.launches == 0
+
+    def test_masked_velvet_call_is_unchanged(self):
+        x, y = sparse_ks_case("random")
+        valid = np.random.default_rng(3).random(x.shape) < 0.5
+        got = tks.batched_ks_2samp_masked(torch.from_numpy(x), torch.from_numpy(valid),
+                                          torch.from_numpy(y[0]))
+        want = jks.batched_ks_2samp_masked(jnp.asarray(x), jnp.asarray(valid),
+                                           jnp.asarray(y[0]))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL)
+
+    @pytest.mark.parametrize("bound,N,cap", [
+        (0, 69904, 32), (1, 69904, 32), (32, 69904, 32), (33, 69904, 64), (1024, 69904, 1024),
+        (13824, 69904, 16384), (32768, 69904, 32768), (32769, 69904, 65536),
+        (69904, 69904, 131072), (10**9, 69904, 131072), (10**9, 100, 128), (5, 100, 32)])
+    def test_capacity(self, bound, N, cap):
+        """Keys for the bound, capped at N: k 9's 1,024 padded distinct reads
+        and 50 kb's 13,824 fit in a power of two of shared float32 keys;
+        past SHARED_CAPACITY a row's keys take a global scratch row."""
+        assert tks.capacity(bound, N) == cap
+        assert cap >= min(bound, N) and cap & (cap - 1) == 0
+        if cap <= tks.SHARED_CAPACITY:
+            assert 4 * cap <= 227 * 1024 - 1024  # beside the block's static words
+
+    def test_capacity_refuses_a_negative_bound(self):
+        with pytest.raises(ValueError):
+            tks.capacity(-1, 69904)
+
+    @pytest.mark.parametrize("N,M", [(69904, 993), (69904, 49993), (7, 3), (300, 293)])
+    def test_weights_are_the_pooled_sorts(self, N, M):
+        """The float32 weights K4 is handed, widened, are those the pooled
+        sort sums."""
+        wx, wy = tks.weights(N, M)
+        assert wx == (1.0 / torch.ones(1).mul(N)).item()
+        assert wy == torch.full((1,), 1.0 / M, dtype=torch.float32).item()
+        assert np.float32(wx) == wx and np.float32(wy) == wy
+
+    @pytest.mark.parametrize("what,match", [
+        ("x 1-D", r"\[B, N\]"), ("y 1-D", r"\[B, N\]"), ("x float64", "float32"),
+        ("y float16", "float32"), ("G divides no B", "dividing B"), ("N 0", "N % 4"),
+        ("N % 4 != 0", "N % 4"), ("M 0", "N % 4"), ("x strided", "contiguous"),
+        ("y strided", "contiguous"), ("x off a 16-byte boundary", "16-byte"),
+        ("negative bound", "bound"), ("CPU rows", "CUDA"), ("two devices", "CUDA")])
+    def test_wrapper_checks(self, what, match):
+        x, y = (torch.from_numpy(a) for a in sparse_ks_case("random"))
+        flat = torch.zeros(x.numel() + 4)
+        off = flat[1 : x.numel() + 1].view(x.shape)
+        assert off.data_ptr() % 16 == 4
+        bound = 64
+        x, y, bound = {
+            "x 1-D": (x[0], y, bound), "y 1-D": (x, y[0], bound),
+            "x float64": (x.double(), y, bound), "y float16": (x, y.half(), bound),
+            "G divides no B": (x[:3], y, bound), "N 0": (x[:, :0], y, bound),
+            "N % 4 != 0": (x[:, :1998].contiguous(), y, bound), "M 0": (x, y[:, :0], bound),
+            "x strided": (x[:, ::2], y, bound), "y strided": (x, y[:, ::2], bound),
+            "x off a 16-byte boundary": (off, y, bound), "negative bound": (x, y, -1),
+            "CPU rows": (x, y, bound), "two devices": (x, y.to("meta"), bound)}[what]
+        with pytest.raises(ValueError, match=match):
+            tks.ks_2samp_sparse(x, y, bound)
+
+    def test_source_in_the_build_set_and_hash(self, tmp_path, monkeypatch):
+        """csrc/ks.cu is one of the kernels cuda_build compiles, and its
+        bytes name its library; checked without nvcc."""
+        src = os.path.join(os.path.dirname(cuda_build.__file__), os.pardir, "csrc")
+        assert "ks" in cuda_build.KERNELS
+        assert sorted(cuda_build.KERNELS) == sorted(
+            os.path.basename(p)[:-3] for p in glob.glob(os.path.join(src, "*.cu")))
+        path = cuda_build.library_path("ks")
+        assert os.path.basename(path).startswith("libks_") and path.endswith(".so")
+        copy = tmp_path / "csrc"
+        shutil.copytree(src, copy)
+        monkeypatch.setattr(cuda_build, "_SRC_DIR", str(copy))
+        assert cuda_build.library_path("ks") == path
+        (copy / "ks.cu").write_text((copy / "ks.cu").read_text() + "\n// edited\n")
+        assert cuda_build.library_path("ks") != path
+        assert cuda_build.library_path("myers") == cuda_build.library_path("myers")
+
+
+def _eval_counters(run):
+    profiling.collect()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        cols = run()
+    return cols, profiling.collect().counters
+
+
+class TestKSDispatchInEvaluation:
+    """evaluate_group's eval.ks: the rows that got a KS and those K4 took,
+    counted under tracing. K4's one call a group runs only on the card
+    (chip_smoke.py [3d] holds the study runner's KS columns with it against
+    the pooled sort's)."""
+
+    @pytest.fixture(scope="class")
+    def asm(self):
+        from genomeassembler_dev_tpu_torch.core.querytable import (
+            load_default_query_table as t_table)
+        from genomeassembler_dev_tpu_torch.pipeline.assembler import Assembler
+        from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
+        cfg = ExperimentConfig(seq_len=300, read_len=12, dbg_kmer=9, coverage_target=15.0,
+                               kmer=8, seed=1234, n_orderings=50)
+        return Assembler(cfg, "cpu", t_table("cpu"))
+
+    def test_cpu_rows_take_the_pooled_sort(self, asm):
+        from genomeassembler_dev_tpu_torch.sim.segments import synthetic_genome
+        cols, counters = _eval_counters(lambda: asm.run_experiment(
+            synthetic_genome(3, 300)).columns)
+        rows = evaluate._round_up(len(cols["sequence"]), evaluate.ROW_MULTIPLE)
+        assert counters["eval.ks_rows"] == rows and counters["eval.ks_kernel_rows"] == 0
+
+    def test_velvet_profile_keeps_the_pooled_sort(self, monkeypatch):
+        from genomeassembler_dev_tpu_torch.core.querytable import (
+            load_default_query_table as t_table)
+        from genomeassembler_dev_tpu_torch.pipeline.config import ExperimentConfig
+        from genomeassembler_dev_tpu_torch.pipeline.velvet import IndustryAssembler
+        from genomeassembler_dev_tpu_torch.sim.segments import synthetic_genome
+
+        def no_kernel(*args):
+            raise AssertionError("the velvet path's masked profile went to K4")
+
+        monkeypatch.setattr(evaluate, "ks_2samp_sparse", no_kernel)
+        seg = synthetic_genome(1, 300)
+        vasm = IndustryAssembler(ExperimentConfig(
+            seq_len=300, read_len=12, dbg_kmer=11, coverage_target=12.0, kmer=8, seed=1234,
+            n_orderings=50, industry_standard=True, velvet_n_orderings=50), "cpu", t_table("cpu"))
+        _, counters = _eval_counters(lambda: vasm.run_external(
+            seg, [seg[lo : lo + 100] for lo in range(0, 300, 90)]).columns)
+        assert counters["eval.ks_rows"] > 0 and counters["eval.ks_kernel_rows"] == 0
 
 
 class TestHistogram:
